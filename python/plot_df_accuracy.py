@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Overlay the on-chip double-float accuracy grid on the CPU-f64 oracle.
+"""Overlay the double-float accuracy grid on the CPU-f64 oracle.
 
 One 2x2 figure (exp/inv x well/ill): each panel shows the two-pass relative
 error vs k from ``accuracy_<f>_<cond>-conditioned.csv`` (CPU f64, the oracle)
-and ``accuracy_<f>_<cond>-conditioned_tpu_df.csv`` (the same sweep run on the
-f32-only TPU through the double-float path, identical seed-42 b). The curves
-coinciding is REPORT.md section 1's "f64-class on chip" claim, as a picture.
+and ``accuracy_<f>_<cond>-conditioned_tpu_df.csv`` (the same sweep through
+the double-float path, f32 arithmetic, identical seed-42 b). The curves
+coinciding is REPORT.md section 1's "f64-class from f32" claim, as a picture.
 
 Counterpart artifact to the reference's per-scenario stability plots
 (reference ``python/plot_stability.py``); the df overlay has no reference
@@ -48,7 +48,7 @@ def main(results_dir: str = "results", out_path: str | None = None) -> int:
                     label="CPU f64 (oracle)")
         ax.semilogy(df["k"], df["relative_error_two_pass"], marker="s",
                     markersize=4, linewidth=1.5, linestyle="--",
-                    color="#c2571a", label="TPU double-float")
+                    color="#c2571a", label="double-float")
         style_axes(ax, "Lanczos iterations k", "Relative error (two-pass)",
                    f"{fn} / {cond}-conditioned")
         ax.legend(frameon=False, fontsize=9)

@@ -1,19 +1,19 @@
-"""Record the multi-device evidence table (VERDICT r1 item 5).
+"""Record the collective traffic of the distributed design.
 
-Runs on a virtual CPU mesh (no TPU pod reachable in this environment):
+Runs on a virtual CPU mesh of 8 devices (the collective instructions XLA
+emits are facts about the mesh, not the backend):
 
-1. per-step collective instructions + bytes from the COMPILED HLO of both
-   distributed designs (generic row partition vs arc-sharded fused);
+1. per-step collective instructions + bytes from the COMPILED HLO of the
+   row-partitioned solve (``ShardedSparseOperator``);
 2. the nnz-balance table of the snake row partition;
 3. virtual-mesh solve wall times at ndev in {1, 2, 4, 8} (CPU-backend
-   times — useful for relative sanity only, not for ICI projections).
+   times — relative sanity only, not a device measurement).
 
 Usage::
 
-    JAX_PLATFORMS= python scripts/collective_audit.py --arcs 500000
+    python scripts/collective_audit.py --arcs 500000
 
 (the script forces the CPU backend + 8 virtual devices itself).
-Recorded output lives in PERF.md "Distributed design — measured evidence".
 """
 
 import argparse
@@ -42,7 +42,6 @@ def main() -> int:
     from jax.sharding import Mesh
 
     from two_pass_lanczos_tpu.models.generator import generate_mcf_instance
-    from two_pass_lanczos_tpu.parallel.fused_sharded import ShardedFusedKKTSolver
     from two_pass_lanczos_tpu.parallel.sharded import ShardedSparseOperator
     from two_pass_lanczos_tpu.utils.collectives import collectives_in_hlo
 
@@ -53,64 +52,18 @@ def main() -> int:
 
     mesh8 = Mesh(np.array(jax.devices()[:8]), ("rows",))
 
-    # --- 1. collective tables from compiled HLO (8 devices) ---
+    # --- 1. collective table from compiled HLO (8 devices) ---
     op = ShardedSparseOperator.from_kkt_arrays(inst, mesh8, dtype=np.float64)
     txt = op._solver(args.k, "inv", "two_pass").lower(
         op.local_blocks, op._prepare_b(b)).compile().as_text()
     generic = [vars(o) | {"bytes_out": o.bytes_out}
                for o in collectives_in_hlo(txt)]
-
-    sf = ShardedFusedKKTSolver(inst.quad_costs.astype(np.float32),
-                               inst.arc_u, inst.arc_v, inst.num_nodes,
-                               mesh8, interpret=True)
-    bu, bv, bn = sf.pack(b)
-    txtf = sf._solver(args.k, "inv", "two_pass").lower(
-        sf._arrs + sf._wins, bu, bv, bn).compile().as_text()
-    fused = [vars(o) | {"bytes_out": o.bytes_out}
-             for o in collectives_in_hlo(txtf)]
-
-    # per-step = one instance of the vector collective in each design
     gather_step = max(o["bytes_out"] // o["count"] for o in generic
                       if o["kind"] == "all-gather")
-    psum_step = max(o["bytes_out"] // o["count"] for o in fused
-                    if o["kind"] == "all-reduce" and tuple(o["shape"]) != ())
     print(json.dumps({
         "instance": {"arcs": inst.num_arcs, "nodes": inst.num_nodes, "n": n},
-        "generic_collectives": generic,
-        "fused_collectives": fused,
-        "per_step_measured": {
-            "generic_all_gather_bytes": gather_step,
-            "fused_psum_bytes": psum_step,
-            "ratio": round(gather_step / psum_step, 1),
-        },
-    }))
-
-    # --- 1b. df sharded design at 8 devices, lowered-StableHLO level ---
-    # (no XLA compile: the interpret-mode df kernels' CPU compile explodes
-    # superlinearly past 4 devices — lowering alone is seconds and the
-    # collective structure is already final at StableHLO)
-    from two_pass_lanczos_tpu.parallel.fused_sharded_df import (
-        DFShardedFusedKKTSolver,
-    )
-    from two_pass_lanczos_tpu.utils.collectives import collectives_in_stablehlo
-
-    inst_df = generate_mcf_instance(min(args.arcs, 20_000), rho=args.rho,
-                                    instance_id=1)
-    sdf = DFShardedFusedKKTSolver(inst_df.quad_costs, inst_df.arc_u,
-                                  inst_df.arc_v, inst_df.num_nodes, mesh8,
-                                  interpret=True)
-    bdf = rng.standard_normal(sdf.n)
-    xu, xv, xn = sdf.pack(bdf)
-    txt_df = sdf._p1(args.k).lower(sdf._arrs + sdf._wins, xu, xv, xn).as_text()
-    df_ops = [vars(o) | {"bytes_out": o.bytes_out}
-              for o in collectives_in_stablehlo(txt_df)]
-    print(json.dumps({
-        "df_sharded_8dev_lowered": df_ops,
-        "df_invariant": "all-gather only (df partials folded locally in "
-                        "device order); an all-reduce here would re-round "
-                        "df to f32",
-        "df_all_reduce_count": sum(o["count"] for o in df_ops
-                                   if o["kind"] == "all-reduce"),
+        "collectives": generic,
+        "per_step_all_gather_bytes": gather_step,
     }))
 
     # --- 2. nnz balance ---
@@ -132,7 +85,7 @@ def main() -> int:
     print(json.dumps({"virtual_mesh_solve_s": times,
                       "note": "CPU-backend wall times; collectives are "
                               "memcpy on a virtual mesh — use the HLO byte "
-                              "table for ICI projections"}))
+                              "table for traffic"}))
     return 0
 
 

@@ -3,7 +3,7 @@
 #
 # Accuracy + orthogonality run on CPU in f64 (reference precision,
 # tex/report.tex:323); the tradeoff/scalability/dense timing experiments run
-# on the default backend — the fused TPU path when a chip is attached.
+# on JAX's default backend (the GPU when one is attached).
 #
 # Usage: scripts/reproduce_results.sh [outdir]   (default: results/)
 set -euo pipefail
@@ -69,7 +69,7 @@ python python/plot_transition.py "$OUT/accuracy_inv_ill_transition_median.csv" "
 # dtype where the instability lives) + plot (REPORT.md §12)
 $RUN two_pass_lanczos_tpu.experiments.reorth_study \
   --function inv --scenario ill-conditioned --size 500 \
-  --k-min 20 --k-max 500 --k-step 20 \
+  --k-min 20 --k-max 500 --k-step 20 --cpu \
   --output "$OUT/reorth_inv_ill-conditioned_f32.csv"
 python python/plot_reorth.py "$OUT/reorth_inv_ill-conditioned_f32.csv" \
   "$OUT/images/reorth_inv_ill-conditioned_f32.pdf"
@@ -99,10 +99,10 @@ $RUN two_pass_lanczos_tpu.experiments.tradeoff \
   --isolate --repeats 3 --cpu-f64 \
   --output "$OUT/tradeoff_arcs500k_rho3_cpu_f64.csv"
 
-# reference-class accuracy ON the accelerator via the double-float path:
-# all four scenarios at the reference's FULL 20-row grid — the published
-# artifacts' schema the integrity suite pins (a partial grid here would
-# break tests/test_results_integrity.py::test_df_grid_matches_reference_grid)
+# the double-float path (f64-class accuracy from f32 arithmetic): all four
+# scenarios at the reference's FULL 20-row grid — the published artifacts'
+# schema the integrity suite pins (a partial grid here would break
+# tests/test_results_integrity.py::test_df_grid_matches_reference_grid)
 bash scripts/run_df_accuracy_grid.sh "$OUT"
 
 $RUN two_pass_lanczos_tpu.experiments.scalability \
@@ -114,10 +114,6 @@ $RUN two_pass_lanczos_tpu.experiments.dense_tradeoff \
   --size 10000 --k-start 100 --k-end 1000 --k-step 100 \
   --isolate --repeats 5 \
   --output "$OUT/dense_tradeoff.csv"
-
-# on-chip capability validation artifact (REPORT §13; pinned by
-# tests/test_results_integrity.py::test_capability_onchip_artifact)
-python scripts/probe/capability_smoke.py --output "$OUT/capability_onchip.json"
 
 # regenerate the standard figures from the fresh CSVs (the remaining
 # figures — transition, reorth, certificate — were produced above)

@@ -1,13 +1,10 @@
 #!/usr/bin/env bash
-# Regenerate the published tradeoff artifacts on the real TPU with
-# per-(variant,k) process isolation (single-configuration VmPeak) and
-# median-of-5 timing (VERDICT r3 items 6 + 8). Strictly sequential TPU
-# workers; the persistent compilation cache keeps the 40-worker sweeps
-# from re-paying the Mosaic compile per process.
+# Tradeoff sweeps on the default backend with per-(variant,k) process
+# isolation (single-configuration peaks) and median-of-5 timing. Workers
+# run one at a time, so one process holds the card; they share the
+# checkout's persistent compile cache (utils/compile_cache.py).
 set -euo pipefail
 cd "$(dirname "$0")/.."
-export JAX_COMPILATION_CACHE_DIR=${JAX_COMPILATION_CACHE_DIR:-/root/repo/.jax_cache}
-mkdir -p "$JAX_COMPILATION_CACHE_DIR"
 OUT=${1:-results}
 for arcs in 5000 50000 500000; do
   case $arcs in

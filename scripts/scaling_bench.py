@@ -1,44 +1,31 @@
-"""Multi-host scaling benchmark: per-step time and nnz/s efficiency of BOTH
-distributed designs over an N-process ``jax.distributed`` mesh.
-
-The BASELINE target is ">= 80% nnz/s scaling efficiency at N >= 2 hosts".
-This script is the ready-to-run measurement artifact (VERDICT r2 item 5):
+"""Multi-process scaling check: per-step time and nnz/s of the
+row-partitioned solve (``ShardedSparseOperator``) over an N-process
+``jax.distributed`` mesh.
 
 * launched WITHOUT ``--process-id`` it is the orchestrator — it spawns N
-  worker processes of itself (one per "host"), collects their JSON, computes
-  the efficiency table, and prints one BENCH-style JSON line per design;
+  worker processes of itself, collects their JSON, computes the efficiency
+  table, and prints one JSON line per N;
 * launched WITH ``--process-id`` it is one worker: it joins the
   ``jax.distributed`` mesh, builds the instance, and times the solve.
 
-On this machine the workers use the CPU backend with virtual devices, so
-the printed numbers are CORRECTNESS-GRADE ONLY (collectives are memcpys;
-``meaningful: false`` in the JSON). On a real pod slice, run the same
-worker command on every host with ``--backend tpu`` and the coordinator
-address of host 0 — nothing else changes (`jax.distributed.initialize` +
-``make_array_from_callback`` handle per-host shard materialization).
+The script is CPU-only: every worker uses the CPU backend with virtual
+devices, so the numbers are CORRECTNESS-GRADE ONLY (collectives are
+memcpys; ``meaningful: false`` in the JSON). Several JAX processes cannot
+share a GPU (each reserves most of its memory), and one process drives
+every card of a host anyway — the four-card measurement is
+``chip_smoke.py --four-cards``. ``--output`` additionally writes the
+records to a JSON artifact (the committed one lives at
+``results/scaling_virtual.json``).
 
-Designs: ``fused`` (arc-sharded f32, O(p) psum/step), ``generic`` (row
-partition, O(n) all-gather/step), ``df`` (arc-sharded double-float,
-all-gather + local df fold/step; on the CPU backend it is auto-dropped for
-meshes over 4 total devices — the interpret-mode XLA-CPU compile explodes
-superlinearly there, a backend artifact the TPU Mosaic compile doesn't
-share). ``--output`` additionally writes the records to a JSON artifact
-(the committed one lives at ``results/scaling_virtual.json``).
-
-Usage (virtual, what CI runs):
+Usage:
 
     python scripts/scaling_bench.py --processes 1 2 --arcs 100000 --k 50
 
-Usage (real pod, on each host i of N):
+JSON schema (one line per N):
 
-    python scripts/scaling_bench.py --process-id $i --num-processes $N \
-        --coordinator host0:8476 --backend tpu --arcs 5000000 --k 500
-
-JSON schema (one line per (design, N)):
-
-    {"metric": "scaling_<design>_nproc<N>", "seconds_per_step": float,
+    {"metric": "scaling_generic_nproc<N>", "seconds_per_step": float,
      "nnz_per_s": float, "efficiency_vs_1proc": float|null,
-     "arcs": int, "k": int, "ndev": int, "meaningful": bool}
+     "arcs": int, "k": int, "ndev": int, "meaningful": false}
 """
 
 import argparse
@@ -55,10 +42,9 @@ if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
 
-def _env(backend="cpu"):
+def _env():
     e = dict(os.environ)
-    if backend == "cpu":
-        e["JAX_PLATFORMS"] = "cpu"
+    e["JAX_PLATFORMS"] = "cpu"
     e["PYTHONPATH"] = _ROOT + os.pathsep + e.get("PYTHONPATH", "")
     return e
 
@@ -66,9 +52,8 @@ def _env(backend="cpu"):
 def worker(args) -> int:
     import jax
 
-    if args.backend == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", args.devices_per_process)
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_num_cpu_devices", args.devices_per_process)
     if args.num_processes > 1:
         jax.distributed.initialize(
             coordinator_address=args.coordinator,
@@ -79,11 +64,7 @@ def worker(args) -> int:
     import numpy as np
 
     from two_pass_lanczos_tpu.models.generator import generate_mcf_instance
-    from two_pass_lanczos_tpu.parallel import (
-        ShardedFusedKKTSolver,
-        ShardedSparseOperator,
-        make_mesh,
-    )
+    from two_pass_lanczos_tpu.parallel import ShardedSparseOperator, make_mesh
 
     inst = generate_mcf_instance(args.arcs, rho=3, instance_id=1)
     m, p = inst.num_arcs, inst.num_nodes
@@ -92,70 +73,26 @@ def worker(args) -> int:
     b = rng.standard_normal(n).astype(np.float32)
     ndev = len(jax.devices())
     mesh = make_mesh(ndev)
-    interpret = jax.default_backend() != "tpu"
     nnz = 5 * m
     out = {}
 
     def timed(run):
-        run()  # compile
+        jax.block_until_ready(run())  # compile
         t0 = time.perf_counter()
         reps = max(args.reps, 1)
         for _ in range(reps):
-            run()
+            jax.block_until_ready(run())
         return (time.perf_counter() - t0) / reps
 
-    # design 1: arc-sharded fused (O(p) psum per step)
-    sf = ShardedFusedKKTSolver(
-        inst.quad_costs.astype(np.float32), inst.arc_u, inst.arc_v, p,
-        mesh, interpret=interpret)
-
-    def run_fused():
-        (xu, xn), dec = sf.solve(b, k=args.k, f="inv", raw=True)
-        float(dec.b_norm)  # forced readback of a replicated scalar
-        return xn
-
-    t_fused = timed(run_fused)
-    out["fused"] = dict(seconds_per_step=t_fused / (2 * args.k),
-                        nnz_per_s=nnz * 2 * args.k / t_fused)
-
-    # design 2: generic row partition (all-gather overlapped w/ owned SpMV)
+    # row partition (all-gather overlapped with the owned SpMV)
     op = ShardedSparseOperator.from_kkt_arrays(inst, mesh, dtype=np.float32)
 
     def run_generic():
-        x, dec = op.solve_fAb(b.astype(np.float32), k=args.k, f="inv",
-                              method="two_pass", raw=True)
-        float(dec.b_norm)  # forced readback of a replicated scalar
-        return x
+        return op.solve_fAb(b, k=args.k, f="inv", method="two_pass", raw=True)
 
     t_gen = timed(run_generic)
     out["generic"] = dict(seconds_per_step=t_gen / (2 * args.k),
                           nnz_per_s=nnz * 2 * args.k / t_gen)
-
-    # design 3 (opt-in): double-float arc-sharded (all-gather + local df
-    # fold per step). Interpret-mode XLA-CPU compile explodes superlinearly
-    # past 4 total devices, so the orchestrator only requests it on meshes
-    # of <= 4 devices (a real pod has no such limit: the kernels compile
-    # through Mosaic there).
-    if "df" in args.designs:
-        from two_pass_lanczos_tpu.parallel.fused_sharded_df import (
-            DFShardedFusedKKTSolver,
-        )
-
-        sdf = DFShardedFusedKKTSolver(
-            inst.quad_costs, inst.arc_u, inst.arc_v, p, mesh,
-            interpret=interpret)
-        b64 = b.astype(np.float64)
-
-        def run_df():
-            (xu2, xn2), (_, _, steps) = sdf.solve(b64, k=args.k, f="inv",
-                                                  raw=True)
-            assert steps > 0
-            float(np.asarray(xn2).sum())  # forced readback (replicated)
-            return xn2
-
-        t_df = timed(run_df)
-        out["df"] = dict(seconds_per_step=t_df / (2 * args.k),
-                         nnz_per_s=nnz * 2 * args.k / t_df)
 
     if args.process_id == 0 or args.num_processes == 1:
         print("SCALING_RESULT " + json.dumps(
@@ -169,11 +106,6 @@ def worker(args) -> int:
 def orchestrate(args) -> int:
     results = {}
     for nproc in args.processes:
-        # interpret-mode df compile explodes past 4 total devices; on a
-        # real TPU backend the Mosaic compile has no such wall
-        designs = [d for d in args.designs
-                   if not (d == "df" and args.backend == "cpu"
-                           and nproc * args.devices_per_process > 4)]
         if nproc == 1:
             cmd = [sys.executable, __file__, "--process-id", "0",
                    "--num-processes", "1"]
@@ -190,20 +122,16 @@ def orchestrate(args) -> int:
                      "--devices-per-process",
                      str(args.devices_per_process),
                      "--arcs", str(args.arcs), "--k", str(args.k),
-                     "--reps", str(args.reps),
-                     "--designs", *designs,
-                     "--backend", args.backend],
+                     "--reps", str(args.reps)],
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                    text=True, env=_env(args.backend)))
+                    text=True, env=_env()))
         if procs is None:
             proc = subprocess.run(
                 cmd + ["--arcs", str(args.arcs), "--k", str(args.k),
                        "--reps", str(args.reps),
-                       "--backend", args.backend,
-                       "--designs", *designs,
                        "--devices-per-process",
                        str(args.devices_per_process)],
-                capture_output=True, text=True, env=_env(args.backend))
+                capture_output=True, text=True, env=_env())
             outs = [proc.stdout]
             rc = proc.returncode
             errs = [proc.stderr]
@@ -223,41 +151,32 @@ def orchestrate(args) -> int:
                 if line.startswith("SCALING_RESULT "):
                     results[nproc] = json.loads(line.split(" ", 1)[1])
     base = results.get(min(results))
-    meaningful = any(r.get("backend") == "tpu" for r in results.values())
     records = []
     for nproc in sorted(results):
-        r = results[nproc]
-        for design in args.designs:
-            if design not in r:
-                continue
-            d = r[design]
-            base_rate = (base[design]["nnz_per_s"]
-                         if base and design in base else None)
-            eff = (d["nnz_per_s"] / (base_rate * nproc / min(results))
-                   if base_rate else None)
-            records.append({
-                "metric": f"scaling_{design}_nproc{nproc}",
-                "seconds_per_step": round(d["seconds_per_step"], 7),
-                "nnz_per_s": round(d["nnz_per_s"], 1),
-                "efficiency_vs_1proc": round(eff, 4) if eff else None,
-                "arcs": args.arcs, "k": args.k, "ndev": r["ndev"],
-                "meaningful": meaningful,
-            })
+        d = results[nproc]["generic"]
+        base_rate = base["generic"]["nnz_per_s"] if base else None
+        eff = (d["nnz_per_s"] / (base_rate * nproc / min(results))
+               if base_rate else None)
+        records.append({
+            "metric": f"scaling_generic_nproc{nproc}",
+            "seconds_per_step": round(d["seconds_per_step"], 7),
+            "nnz_per_s": round(d["nnz_per_s"], 1),
+            "efficiency_vs_1proc": round(eff, 4) if eff else None,
+            "arcs": args.arcs, "k": args.k, "ndev": results[nproc]["ndev"],
+            "meaningful": False,
+        })
     for rec in records:
         print(json.dumps(rec))
-    if not meaningful:
-        note = {
-            "note": "CPU virtual mesh: correctness-grade only — collectives"
-                    " are memcpys; run with --backend tpu on a pod for the"
-                    " >=80% BASELINE efficiency measurement"}
-        print(json.dumps(note))
-        records.append(note)
+    note = {"note": "CPU virtual mesh: correctness-grade only — collectives"
+                    " are memcpys, not a device measurement"}
+    print(json.dumps(note))
+    records.append(note)
     if args.output:
         with open(args.output, "w") as f:
             json.dump({
                 "command": " ".join(sys.argv),
                 "host": {"physical_cores": os.cpu_count(),
-                         "backend": args.backend,
+                         "backend": "cpu",
                          "devices_per_process": args.devices_per_process},
                 "records": records,
             }, f, indent=1)
@@ -272,12 +191,9 @@ def main() -> int:
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--coordinator", default="localhost:8476")
     ap.add_argument("--devices-per-process", type=int, default=4)
-    ap.add_argument("--backend", default="cpu", choices=["cpu", "tpu"])
     ap.add_argument("--arcs", type=int, default=100_000)
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--designs", nargs="+", default=["fused", "generic"],
-                    choices=["fused", "generic", "df"])
     ap.add_argument("--output", default=None,
                     help="also write the orchestrator's JSON records here")
     ap.add_argument("--port", type=int, default=8476)

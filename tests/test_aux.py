@@ -2,12 +2,14 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import two_pass_lanczos_tpu as tpl
 from two_pass_lanczos_tpu.checkpoint import load_decomposition, save_decomposition
 from two_pass_lanczos_tpu.observability import (
     find_stopping_point,
     kkt_spmv_sol,
+    peak_hbm_bandwidth,
     replay_iterations,
     truncate_decomposition,
 )
@@ -83,11 +85,30 @@ def test_checkpoint_roundtrip(tmp_path):
     np.testing.assert_allclose(np.asarray(x_resumed), np.asarray(x_fresh), rtol=1e-12)
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 def test_sol_report():
-    rep = kkt_spmv_sol(500_000, 1155, achieved_seconds=2e-3)
+    rep = kkt_spmv_sol(500_000, 1155, achieved_seconds=2e-3, device_kind=H100)
     assert rep.nnz == 2_500_000
     assert 0 < rep.sol_fraction < 1
     assert "speed of light" in str(rep)
+    # 500k arcs x (2 int32 + 3 f64) + 2 node vectors, over 3.35 TB/s
+    rep64 = kkt_spmv_sol(500_000, 1155, achieved_seconds=2e-3,
+                         device_kind=H100, dtype_bytes=8)
+    assert rep64.bytes_per_matvec == 500_000 * 32 + 2 * 1155 * 8
+    assert rep64.sol_seconds == rep64.bytes_per_matvec / 3.35e12
+
+
+def test_peak_table_knows_the_h100():
+    assert peak_hbm_bandwidth(H100) == 3.35e12
+
+
+def test_peak_table_refuses_unknown_kinds():
+    with pytest.raises(KeyError, match="no published memory bandwidth"):
+        peak_hbm_bandwidth("cpu")
+    with pytest.raises(KeyError):
+        kkt_spmv_sol(10, 2, achieved_seconds=1.0, device_kind="NVIDIA A100-SXM4-40GB")
 
 
 class TestErrorMessages:

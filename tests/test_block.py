@@ -404,11 +404,9 @@ class TestJittableBlockSolve:
 class TestMatmulPrecision:
     """The GEMM-heavy device programs must trace at HIGHEST dot precision.
 
-    TPU DEFAULT dot precision is bfloat16-class; CPU dots are exact-dtype,
-    so only the traced program (not a CPU numeric result) can pin the fix.
-    Measured on-chip before the fix: solve_fAb_block rel error 5.5e-3 on a
-    well-conditioned diagonal where the CPU harness pins ~1e-6
-    (2026-08-18 capability smoke)."""
+    An accelerator's DEFAULT f32 dot precision is reduced (TF32 on a GPU);
+    CPU dots are exact-dtype, so only the traced program (not a CPU numeric
+    result) can pin the fix."""
 
     @staticmethod
     def _dots_all_highest(jaxpr_str):

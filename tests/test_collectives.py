@@ -1,14 +1,9 @@
-"""Pin the per-step collective traffic of the two distributed designs.
+"""Pin the per-step collective traffic of the distributed design.
 
 Extracted from the compiled HLO on the 8-virtual-device CPU mesh (the
-collective instructions XLA emits are mesh facts, not backend facts):
-
-* generic row partition (`ShardedSparseOperator`): exactly one full-vector
-  all-gather per pass per step — O(n) bytes;
-* arc-sharded fused design (`ShardedFusedKKTSolver`): only the (P2, 128)
-  node-partial psum (+ scalar psums) per step — O(p) bytes, no all-gather.
-
-This is the measured basis for the PERF.md "~5 KB vs ~2 MB per step" model.
+collective instructions XLA emits are mesh facts, not backend facts): the
+row partition (`ShardedSparseOperator`) does exactly one full-vector
+all-gather per pass per step — O(n) bytes — plus scalar psums.
 """
 
 import numpy as np
@@ -59,60 +54,6 @@ def test_generic_path_collectives(mesh8, inst):
     assert not vec_reduces, ops
 
 
-def test_fused_path_collectives(mesh8, inst):
-    from two_pass_lanczos_tpu.parallel.fused_sharded import ShardedFusedKKTSolver
-
-    s = ShardedFusedKKTSolver(
-        inst.quad_costs.astype(np.float32), inst.arc_u, inst.arc_v,
-        inst.num_nodes, mesh8, interpret=True)
-    b = np.random.default_rng(0).standard_normal(s.n)
-    solver = s._solver(8, "inv", "two_pass")
-    bu, bv, bn = s.pack(b)
-    txt = _compiled_text(solver, s._arrs + s._wins, bu, bv, bn)
-    ops = collectives_in_hlo(txt)
-    # NO all-gather anywhere: the node block is replicated, arcs never move
-    assert not [o for o in ops if o.kind == "all-gather"], ops
-    # the only vector collective is the (P2, 128) node-partial psum
-    vec = [o for o in ops if o.kind == "all-reduce" and o.shape != ()]
-    assert vec, ops
-    for o in vec:
-        assert o.shape == (s.P2, 128), o
-
-
-def test_traffic_ratio_matches_perf_model(mesh8, inst):
-    """The O(n) vs O(p) separation: per-step all-gather bytes of the generic
-    path vs psum bytes of the fused path, both from compiled HLO. At 20k
-    arcs the model predicts n_pad*8 B vs P2*128*4 B (~50x); at the 500k-arc
-    production size the same formulas give ~2 MB vs ~5.6 KB (~360x) —
-    PERF.md 'Distributed design'."""
-    from two_pass_lanczos_tpu.parallel.fused_sharded import ShardedFusedKKTSolver
-    from two_pass_lanczos_tpu.parallel.sharded import ShardedSparseOperator
-
-    op = ShardedSparseOperator.from_kkt_arrays(inst, mesh8, dtype=np.float64)
-    b = np.random.default_rng(1).standard_normal(inst.num_arcs + inst.num_nodes)
-    txt_g = _compiled_text(op._solver(4, "inv", "two_pass"), op.local_blocks,
-                           op._prepare_b(b))
-    gathers = [o for o in collectives_in_hlo(txt_g) if o.kind == "all-gather"]
-    # per step = one instance (XLA may dedupe the pass-1/pass-2 bodies)
-    per_step_gather = max(o.bytes_out // o.count for o in gathers)
-
-    s = ShardedFusedKKTSolver(
-        inst.quad_costs.astype(np.float32), inst.arc_u, inst.arc_v,
-        inst.num_nodes, mesh8, interpret=True)
-    bu, bv, bn = s.pack(b)
-    txt_f = _compiled_text(s._solver(4, "inv", "two_pass"),
-                           s._arrs + s._wins, bu, bv, bn)
-    vec = [o for o in collectives_in_hlo(txt_f)
-           if o.kind == "all-reduce" and o.shape != ()]
-    per_step_psum = max(o.bytes_out // o.count for o in vec)
-
-    # model values
-    assert per_step_gather == op.part.n_pad * 8
-    assert per_step_psum == s.P2 * 128 * 4
-    ratio = per_step_gather / per_step_psum
-    assert ratio > 25, ratio  # O(n)/O(p); grows with instance size
-
-
 def test_nnz_balance(mesh8, inst):
     """The snake partition balances nnz, not rows: max/mean < 1.02 on the
     KKT instance across 8 devices (recorded table in PERF.md)."""
@@ -127,26 +68,24 @@ def test_nnz_balance(mesh8, inst):
 def test_generic_matvec_overlaps_halo_with_owned_spmv(mesh8, inst):
     """SURVEY §7 stage 5: the all-gather (halo exchange) must be
     data-independent of the owned-column SpMV so the scheduler can overlap
-    them. Asserted structurally on the traced jaxpr: the owned scatter-add
-    consumes no value derived from the all_gather, while the remote
-    scatter-add does."""
+    them. Asserted structurally on the traced jaxpr: the owned row sums
+    consume no value derived from the all_gather, while the remote row
+    sums do."""
     from two_pass_lanczos_tpu.parallel.sharded import (
-        ShardedSparseOperator, _local_matvec)
+        ShardedSparseOperator, _device_blocks, _local_matvec)
 
     op = ShardedSparseOperator.from_kkt_arrays(inst, mesh8, dtype=np.float64)
 
     def run(blocks, x_local):
-        blocks = tuple(a[0] for a in blocks)
-        return _local_matvec(blocks, x_local, "rows", op.part.rows_per)
+        return _local_matvec(_device_blocks(blocks), x_local, "rows")
 
     shmapped = jax.shard_map(
         run, mesh=mesh8,
-        in_specs=(tuple([jax.sharding.PartitionSpec("rows", None)] * 6),
+        in_specs=(jax.sharding.PartitionSpec("rows"),
                   jax.sharding.PartitionSpec("rows")),
         out_specs=jax.sharding.PartitionSpec("rows"), check_vma=False)
     x = np.zeros(op.part.n_pad)
-    jaxpr = jax.make_jaxpr(shmapped)(
-        tuple(np.asarray(a) for a in op.local_blocks), x)
+    jaxpr = jax.make_jaxpr(shmapped)(op.local_blocks, x)
 
     def find_inner(jx):
         for eqn in jx.eqns:
@@ -160,72 +99,22 @@ def test_generic_matvec_overlaps_halo_with_owned_spmv(mesh8, inst):
 
     inner = find_inner(jaxpr)
     tainted = set()
-    scatter_taint = []
+    sum_taint = []
     for eqn in inner.eqns:
         deps = any(getattr(v, "count", None) is not None and v in tainted
                    for v in eqn.invars)
         if eqn.primitive.name == "all_gather" or deps:
             tainted.update(eqn.outvars)
-        if eqn.primitive.name in ("scatter-add", "scatter_add"):
-            scatter_taint.append(deps)
-    assert len(scatter_taint) == 2, scatter_taint
-    assert scatter_taint[0] is False, "owned SpMV depends on the all-gather"
-    assert scatter_taint[1] is True, "remote part must consume the gather"
-
-
-def test_df_sharded_8dev_collectives_lower_only(mesh8):
-    """VERDICT r3 item 9: the double-float sharded solver's collective
-    pattern at the FULL 8-device mesh, audited at the lowered-StableHLO
-    level (no XLA compile — the interpret-mode df kernels' CPU compile
-    explodes superlinearly past 4 devices, so execution tests stop at 4;
-    this pins the 8-way structure those tests can't reach).
-
-    The df invariant: NO all-reduce anywhere (a plain f32 psum of df
-    partials would re-round to f32 and destroy the ~2^-49 working
-    precision) — every cross-device reduction is an all-gather of tiny
-    partials over the full 8-device group, folded locally in device order:
-    per matvec one (8, P2, 128) gather per df plane (hi + lo), per dot one
-    (8,) scalar gather per plane.
-    """
-    from two_pass_lanczos_tpu.parallel.fused_sharded_df import (
-        DFShardedFusedKKTSolver)
-    from two_pass_lanczos_tpu.utils.collectives import collectives_in_stablehlo
-
-    small = generate_mcf_instance(2000, rho=3, instance_id=1)
-    s = DFShardedFusedKKTSolver(
-        small.quad_costs, small.arc_u, small.arc_v, small.num_nodes,
-        mesh8, interpret=True)
-    b = np.random.default_rng(0).standard_normal(s.n)
-    xu, xv, xn = s.pack(b)
-    k = 4
-    txt1 = s._p1(k).lower(s._arrs + s._wins, xu, xv, xn).as_text()
-
-    ops1 = collectives_in_stablehlo(txt1)
-    assert ops1, "no collectives found — parser or lowering regressed"
-    assert all(o.kind == "all-gather" for o in ops1), ops1
-    # node-partial gathers: full-group, one per df plane, (8, P2, 128)
-    node = [o for o in ops1 if o.shape == (8, s.P2, 128)]
-    assert node and all(o.dtype == "f32" for o in node), ops1
-    # scalar dot-partial gathers: (8,) f32
-    scalar = [o for o in ops1 if o.shape == (8,)]
-    assert scalar and all(o.dtype == "f32" for o in scalar), ops1
-    assert not [o for o in ops1 if o.kind == "all-reduce"], ops1
-
-    # pass two: same invariant (matvec node gathers only; y is replicated)
-    steps = jnp_steps = np.asarray(k, np.int32)
-    ah = al = bh = bl = np.zeros(k, np.float32)
-    bn2 = np.zeros(2, np.float32)
-    y2 = np.zeros((2, k), np.float32)
-    txt2 = s._p2(k).lower(s._arrs + s._wins, xu, xv, xn, ah, al, bh, bl,
-                          jnp_steps, bn2, y2).as_text()
-    ops2 = collectives_in_stablehlo(txt2)
-    assert ops2 and all(o.kind == "all-gather" for o in ops2), ops2
-    assert not [o for o in ops2 if o.kind == "all-reduce"], ops2
+        if eqn.primitive.name == "reduce_sum":
+            sum_taint.append(deps)
+    assert len(sum_taint) >= 2, sum_taint
+    assert sum_taint[0] is False, "owned SpMV depends on the all-gather"
+    assert sum_taint[-1] is True, "remote part must consume the gather"
 
 
 def test_generic_split_matvec_matches_dense(mesh8, inst):
-    """Owned+remote split must reproduce the full SpMV exactly (same
-    triplets, two scatter-adds instead of one)."""
+    """Owned+remote split must reproduce the full SpMV (same triplets, two
+    fixed-order row reductions instead of one)."""
     from two_pass_lanczos_tpu.parallel.sharded import ShardedSparseOperator
 
     op = ShardedSparseOperator.from_kkt_arrays(inst, mesh8, dtype=np.float64)

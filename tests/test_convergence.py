@@ -100,23 +100,23 @@ def test_min_steps_defers_first_check():
     assert cb.stopped_at is not None and cb.stopped_at >= 20
 
 
-def test_convergence_callback_on_fused_path():
-    """Contract smoke on FusedKKTSolver (interpret mode): the coefficient-only
-    callback plugs into the chunked fused pass one unchanged."""
+def test_convergence_callback_on_kkt_operator():
+    """Contract smoke on the KKT operator: the coefficient-only callback
+    plugs into the chunked two-pass driver unchanged and stops it."""
     rng = np.random.default_rng(2)
     m, p = 300, 120
     u = rng.integers(0, p, m).astype(np.int32)
     v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
-    d = rng.uniform(1.0, 3.0, m).astype(np.float32)
-    s = tpl.FusedKKTSolver(d, u, v, p, interpret=True)
-    b = rng.standard_normal(m + p).astype(np.float32)
-    # tol=inf-like: fires at the first evaluated step (lag+1) — pins the
+    d = rng.uniform(1.0, 3.0, m)
+    op = tpl.make_kkt_operator(d, u, v, p, dtype=jnp.float64)
+    b = jnp.asarray(rng.standard_normal(m + p))
+    # tol=inf: fires at the first evaluated step (lag+1) — pins the
     # mechanical integration; numerical stopping quality is covered on the
-    # f64 paths above (f32 indefinite spectra converge erratically).
+    # diagonal problems above.
     cb = make_convergence_callback("inv", tol=np.inf, lag=5, stride=1)
-    x, dec = s.solve(b, k=32, f="inv", callback=cb, callback_chunk=8)
+    x = tpl.lanczos_two_pass(op, b, 32, tpl.make_inv_solver(), callback=cb,
+                             callback_chunk=8)
     assert cb.stopped_at == 6
-    assert int(dec.steps_taken) == 6
     assert np.all(np.isfinite(np.asarray(x)))
 
 

@@ -140,8 +140,7 @@ def test_baseline_config1_exp_on_vendored_kkt():
     # ~1e5; use A / ||d||_inf
     scale = float(np.max(arrays.quad_costs))
     dsc = arrays.quad_costs / scale
-    op = tpl.make_kkt_operator(dsc, arrays.arc_u, arrays.arc_v, p,
-                               backend="xla", dtype=jnp.float64)
+    op = tpl.make_kkt_operator(dsc, arrays.arc_u, arrays.arc_v, p, dtype=jnp.float64)
     rng = np.random.default_rng(7)
     b = rng.standard_normal(n)
 

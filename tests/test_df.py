@@ -304,8 +304,8 @@ def test_df_four_properties_at_reference_tolerances():
 
 def test_df_operator_table_guard_hub_graph():
     """`DFKKTOperator.from_f64` refuses to densify a hub-heavy incidence
-    into an O(p·max_degree) table (ADVICE r2 item 1): the error names the
-    sharded df solver as the escape hatch."""
+    into an O(p·max_degree) table: the error names the f64 KKTOperator as
+    the way out."""
     from two_pass_lanczos_tpu.algorithms.df import DFKKTOperator
 
     p = 70_000
@@ -313,5 +313,5 @@ def test_df_operator_table_guard_hub_graph():
     u = np.zeros(m, np.int64)  # star: node 0 has degree m
     v = 1 + np.arange(m, dtype=np.int64) % (p - 1)
     d = np.ones(m)
-    with pytest.raises(ValueError, match="DFShardedFusedKKTSolver"):
+    with pytest.raises(ValueError, match="f64 KKTOperator"):
         DFKKTOperator.from_f64(d, u, v, p)

@@ -94,7 +94,7 @@ def test_kkt_operator_extreme_pairs():
     u = rng.integers(0, p, m).astype(np.int32)
     v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
     dq = rng.uniform(1.0, 3.0, m)
-    op = tpl.make_kkt_operator(dq, u, v, p, backend="xla", dtype=jnp.float64)
+    op = tpl.make_kkt_operator(dq, u, v, p, dtype=jnp.float64)
     n = m + p
     a = np.zeros((n, n))
     a[np.arange(m), np.arange(m)] = dq

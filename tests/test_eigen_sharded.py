@@ -28,8 +28,7 @@ def _kkt_pair(arcs=400, iid=5):
                        arc_v=inst.arc_v, num_nodes=inst.num_nodes,
                        num_arcs=inst.num_arcs)
     host_op = tpl.make_kkt_operator(arrays.quad_costs, arrays.arc_u,
-                                    arrays.arc_v, arrays.num_nodes,
-                                    backend="xla", dtype=jnp.float64)
+                                    arrays.arc_v, arrays.num_nodes, dtype=jnp.float64)
     return arrays, host_op
 
 

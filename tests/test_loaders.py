@@ -172,25 +172,3 @@ def test_stability_accuracy_on_reference_scenarios():
     x = tpl.lanczos_two_pass(op, jnp.asarray(b), k, tpl.make_exp_solver())
     rel = np.linalg.norm(np.asarray(x) - x_true) / np.linalg.norm(x_true)
     assert rel < 1e-13
-
-
-def test_pallas_kkt_kernel_interpret_mode():
-    # The TPU kernel validated on CPU via the Pallas interpreter against the
-    # XLA matvec oracle (tiny sizes keep interpretation fast).
-    import jax.numpy as jnp
-    from two_pass_lanczos_tpu.operators import KKTOperator, PallasKKTOperator
-
-    rng = np.random.default_rng(5)
-    m, p = 300, 40
-    u = rng.integers(0, p, m).astype(np.int32)
-    v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
-    d = rng.uniform(1, 3, m).astype(np.float32)
-    x = jnp.asarray(rng.standard_normal(m + p).astype(np.float32))
-
-    ref_op = KKTOperator(d=jnp.asarray(d), arc_u=jnp.asarray(u),
-                         arc_v=jnp.asarray(v), num_nodes=p)
-    pal_op = PallasKKTOperator.build(d, u, v, p, interpret=True)
-    y_ref = np.asarray(ref_op.matvec(x))
-    y_pal = np.asarray(pal_op.matvec(x))
-    rel = np.max(np.abs(y_pal - y_ref)) / np.max(np.abs(y_ref))
-    assert rel < 1e-6, f"pallas kernel deviates: {rel:.3e}"

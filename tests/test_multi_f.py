@@ -6,16 +6,15 @@ decomposition — the Krylov work (all the matvecs) is shared, only the
 per-step accumulate fans out. Pinned here: (1) each multi slice is
 bit-identical to its single-f run on the two-pass paths (the replay
 arithmetic is independent of y); (2) nf functions cost k (one-pass) /
-2k (two-pass) matvecs, not nf times that; (3) the fused kernels produce
-the same stack (interpret mode).
+2k (two-pass) matvecs, not nf times that; (3) the row-partitioned
+distributed path produces the same stack.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import two_pass_lanczos_tpu as tpl
-from tests.test_chunked import CountingOperator, _problem
+from test_chunked import CountingOperator, _problem
 
 
 def _solvers():
@@ -109,102 +108,3 @@ class TestShardedMultiF:
             np.testing.assert_allclose(
                 x_multi[i], x_single, rtol=0,
                 atol=1e-12 * np.abs(x_single).max())
-
-    @pytest.mark.parametrize("method", ["one_pass", "two_pass"])
-    def test_fused_arc_sharded(self, method):
-        from two_pass_lanczos_tpu.parallel import make_mesh
-        from two_pass_lanczos_tpu.parallel.fused_sharded import (
-            ShardedFusedKKTSolver)
-
-        d, u, v, p, b = self._kkt()
-        s = ShardedFusedKKTSolver(d, u, v, p, make_mesh(3), interpret=True)
-        fs = ("inv", "exp")
-        x_multi, dec = s.solve(b, k=12, f=fs, method=method)
-        assert x_multi.shape == (2, len(d) + p)
-        for i, f in enumerate(fs):
-            x_single, _ = s.solve(b, k=12, f=f, method=method)
-            np.testing.assert_allclose(
-                x_multi[i], x_single, rtol=0,
-                atol=1e-6 * np.abs(x_single).max())
-
-    def test_fused_arc_sharded_with_callback(self):
-        from two_pass_lanczos_tpu.parallel import make_mesh
-        from two_pass_lanczos_tpu.parallel.fused_sharded import (
-            ShardedFusedKKTSolver)
-
-        d, u, v, p, b = self._kkt(seed=9)
-        s = ShardedFusedKKTSolver(d, u, v, p, make_mesh(2), interpret=True)
-        x_multi, dec = s.solve(b, k=16, f=("inv", "exp"),
-                               callback=lambda s_, v_, t: s_ < 7,
-                               callback_chunk=4)
-        assert int(np.asarray(dec.steps_taken)) == 7
-        assert x_multi.shape == (2, len(d) + p)
-        assert np.all(np.isfinite(x_multi))
-
-
-class TestFusedMultiF:
-    def _problem(self, seed=3, m=400, p=150):
-        rng = np.random.default_rng(seed)
-        u = rng.integers(0, p, m).astype(np.int32)
-        v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
-        d = rng.uniform(1.0, 3.0, m).astype(np.float32)
-        b = rng.standard_normal(m + p).astype(np.float32)
-        return d, u, v, p, b
-
-    @pytest.mark.parametrize("method", ["one_pass", "two_pass"])
-    def test_fused_multi_matches_singles(self, method):
-        d, u, v, p, b = self._problem()
-        s = tpl.FusedKKTSolver(d, u, v, p, interpret=True)
-        fs = ("inv", "exp")
-        x_multi, dec = s.solve(b, k=16, f=fs, method=method)
-        assert x_multi.shape == (2, len(d) + p)
-        for i, f in enumerate(fs):
-            x_single, dec_s = s.solve(b, k=16, f=f, method=method)
-            np.testing.assert_array_equal(np.asarray(dec.alphas),
-                                          np.asarray(dec_s.alphas))
-            # The pass-two kernel replay is bit-identical for a (nf,k) vs
-            # (k,) y (pinned by test_pass_two_kernel_bit_identical below);
-            # end-to-end the multi solve is a DIFFERENT XLA program, so the
-            # in-jit projected solve (linalg.solve/eigh) may differ by ulps
-            # — compare at f32 rounding.
-            np.testing.assert_allclose(
-                x_multi[i], x_single, rtol=0,
-                atol=1e-6 * np.abs(x_single).max())
-
-    def test_fused_multi_with_callback(self):
-        d, u, v, p, b = self._problem(seed=4)
-        s = tpl.FusedKKTSolver(d, u, v, p, interpret=True)
-        stop = 9
-        x_multi, dec = s.solve(b, k=24, f=("inv", "exp"),
-                               callback=lambda s_, v_, t: s_ < stop,
-                               callback_chunk=4)
-        assert int(dec.steps_taken) == stop
-        x_single, _ = s.solve(b, k=24, f="inv",
-                              callback=lambda s_, v_, t: s_ < stop,
-                              callback_chunk=4)
-        np.testing.assert_allclose(
-            np.asarray(x_multi[0]), np.asarray(x_single), rtol=0,
-            atol=1e-6 * np.abs(np.asarray(x_single)).max())
-
-    def test_pass_two_kernel_bit_identical(self):
-        """The kernel itself is y-independent in its replay arithmetic: a
-        (nf, k) stack's slice is BIT-equal to the (k,) run given the same
-        y values (the end-to-end ulp differences come from the projected
-        solve compiling in a different XLA program, not from the kernel)."""
-        import jax.numpy as jnp
-
-        from two_pass_lanczos_tpu.functions import padded_f_e1
-
-        d, u, v, p, b = self._problem(seed=5)
-        s = tpl.FusedKKTSolver(d, u, v, p, interpret=True)
-        k = 16
-        b_rep = s._split_flat(jnp.asarray(s.pack_flat(b)))
-        dec = s.pass_one(b_rep, k)
-        idx = jnp.arange(k)
-        ys = [jnp.where(idx < dec.steps_taken,
-                        padded_f_e1(dec, f).astype(jnp.float32) * dec.b_norm,
-                        0.0) for f in ("inv", "exp")]
-        xu_s, xn_s = s.pass_two(b_rep, dec, ys[0])
-        xu_m, xn_m = s.pass_two(b_rep, dec, jnp.stack(ys))
-        np.testing.assert_array_equal(np.asarray(xu_m[0]), np.asarray(xu_s))
-        np.testing.assert_array_equal(np.asarray(xn_m[0]), np.asarray(xn_s))

@@ -1,8 +1,7 @@
-"""Multi-host (multi-process jax.distributed) smoke of the fused sharded
-solver: two OS processes x 4 virtual CPU devices = one 8-device global mesh
-spanning process boundaries. This is the strategy SURVEY §4 prescribes for
-the capability the reference cannot test (it is single-threaded), and the
-off-pod realization of BASELINE config 5 (N >= 2 hosts).
+"""Multi-process (jax.distributed) smoke of the row-partitioned solver: two
+OS processes x 4 virtual CPU devices = one 8-device global mesh spanning
+process boundaries. This is the strategy SURVEY §4 prescribes for the
+capability the reference cannot test (it is single-threaded).
 
 The subprocesses run scripts/multihost_smoke.py; the oracle ||b|| comes from
 an in-process computation on the identical seeded instance.
@@ -35,7 +34,6 @@ def test_two_process_distributed_solve():
     rng.integers(0, p - 1, m)
     rng.uniform(1.0, 3.0, m)
     b = rng.standard_normal(m + p).astype(np.float32)
-    # the fused dot counts each arc once + nodes once = plain ||b||
     bnorm = float(np.linalg.norm(b.astype(np.float64)))
 
     port = _free_port()
@@ -66,60 +64,28 @@ def test_two_process_distributed_solve():
 
 def test_scaling_artifact_published():
     """The committed virtual-mesh scaling artifact
-    (results/scaling_virtual.json, VERDICT r3 item 2) carries the
-    documented schema: fused+generic at nproc {1,2,4}, df at the <=4-device
-    meshes, every record marked meaningful:false (1-core CPU host — the
-    same command with --backend tpu on a pod produces the BASELINE >=80%
-    measurement), plus the command line to re-run it."""
+    (results/scaling_virtual.json) carries the documented schema: the row
+    partition at nproc {1,2,4}, every record marked meaningful:false (a CPU
+    virtual mesh, not a device measurement), plus the command line to
+    re-run it."""
     import json
 
     art = Path(__file__).resolve().parents[1] / "results" / "scaling_virtual.json"
     assert art.exists(), "results/scaling_virtual.json not committed"
     doc = json.loads(art.read_text())
-    assert "--backend tpu" not in doc["command"]
+    assert doc["host"]["backend"] == "cpu"
     metrics = {r["metric"]: r for r in doc["records"] if "metric" in r}
-    for design in ("fused", "generic"):
-        for nproc in (1, 2, 4):
-            r = metrics[f"scaling_{design}_nproc{nproc}"]
-            assert r["seconds_per_step"] > 0 and r["nnz_per_s"] > 0
-            assert r["meaningful"] is False
-    # df present on the <=4-total-device meshes (interpret-mode compile
-    # explodes past 4; a TPU pod run has no such limit)
-    assert "scaling_df_nproc1" in metrics and "scaling_df_nproc2" in metrics
+    for nproc in (1, 2, 4):
+        r = metrics[f"scaling_generic_nproc{nproc}"]
+        assert r["seconds_per_step"] > 0 and r["nnz_per_s"] > 0
+        assert r["meaningful"] is False
     assert any("note" in r for r in doc["records"])
 
 
-@pytest.mark.slow
-def test_scaling_bench_four_process_with_df():
-    """4-process jax.distributed sweep including the double-float sharded
-    design (VERDICT r3 item 2's done-criterion): df runs on the <=4-device
-    legs, f32 designs on all legs, schema identical to the artifact's."""
-    import json
-
-    script = Path(__file__).resolve().parent.parent / "scripts" / "scaling_bench.py"
-    proc = subprocess.run(
-        [sys.executable, str(script), "--processes", "1", "4",
-         "--arcs", "8000", "--k", "6", "--reps", "1",
-         "--devices-per-process", "1",
-         "--designs", "fused", "generic", "df", "--port", "8617"],
-        capture_output=True, text=True, timeout=1500)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    records = [json.loads(l) for l in proc.stdout.splitlines()
-               if l.startswith("{")]
-    metrics = {r["metric"]: r for r in records if "metric" in r}
-    for design in ("fused", "generic", "df"):
-        for nproc in (1, 4):
-            r = metrics[f"scaling_{design}_nproc{nproc}"]
-            assert r["seconds_per_step"] > 0
-            assert r["ndev"] == nproc
-
-
 def test_scaling_bench_two_process_schema():
-    """`scripts/scaling_bench.py` (the BASELINE >=80%-efficiency
-    measurement artifact) runs 1- and 2-process sweeps on the virtual mesh
-    and emits the documented JSON schema for both distributed designs
-    (VERDICT r2 item 5). Virtual numbers are correctness-grade only; the
-    same command runs unmodified on a pod."""
+    """`scripts/scaling_bench.py` runs 1- and 2-process sweeps on the
+    virtual mesh and emits the documented JSON schema for the row
+    partition. Virtual numbers are correctness-grade only."""
     import json
     import subprocess
     import sys
@@ -134,12 +100,10 @@ def test_scaling_bench_two_process_schema():
     records = [json.loads(l) for l in proc.stdout.splitlines()
                if l.startswith("{")]
     metrics = {r["metric"]: r for r in records if "metric" in r}
-    for design in ("fused", "generic"):
-        for nproc in (1, 2):
-            r = metrics[f"scaling_{design}_nproc{nproc}"]
-            assert r["seconds_per_step"] > 0
-            assert r["nnz_per_s"] > 0
-            assert r["ndev"] == 4 * nproc
-            assert r["meaningful"] is False  # virtual mesh
-        assert metrics[f"scaling_{design}_nproc1"][
-            "efficiency_vs_1proc"] == 1.0
+    for nproc in (1, 2):
+        r = metrics[f"scaling_generic_nproc{nproc}"]
+        assert r["seconds_per_step"] > 0
+        assert r["nnz_per_s"] > 0
+        assert r["ndev"] == 4 * nproc
+        assert r["meaningful"] is False  # virtual mesh
+    assert metrics["scaling_generic_nproc1"]["efficiency_vs_1proc"] == 1.0

@@ -1,7 +1,7 @@
 """Distributed-layer tests on a virtual 8-device CPU mesh.
 
 The reference has nothing distributed; these tests implement the strategy
-SURVEY §4 prescribes for the TPU build: mesh-size-parameterized equality
+SURVEY §4 prescribes for the distributed build: mesh-size-parameterized equality
 between 1-device and N-device runs, within rounding tolerance (reduction
 orders differ across device counts).
 """
@@ -126,8 +126,8 @@ def test_distributed_mesh_sizes_consistent():
 
 class TestGenericChunked:
     """In-run early stopping on the generic row partition
-    (`ShardedSparseOperator.solve_fAb(callback=...)`): same contract as the
-    fused distributed path — chunked coefficients bit-identical to the
+    (`ShardedSparseOperator.solve_fAb(callback=...)`): chunked
+    coefficients bit-identical to the
     monolithic scan, a stop at s costs <= ceil(s/chunk)·chunk pass-one
     matvecs + s pass-two matvecs per device."""
 

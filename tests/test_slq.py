@@ -166,7 +166,7 @@ def test_slq_on_vendored_kkt_operator():
     scale = float(np.max(arrays.quad_costs))
     dsc = arrays.quad_costs / scale
     op = tpl.make_kkt_operator(dsc, arrays.arc_u, arrays.arc_v,
-                               arrays.num_nodes, backend="xla",
+                               arrays.num_nodes,
                                dtype=jnp.float64)
     truth = float(np.sum(dsc**2)) + 4.0 * arrays.num_arcs
     res = slq_trace(op, lambda x: x**2, k=4, num_probes=64,
@@ -295,8 +295,7 @@ def test_sharded_slq_matches_single_device_estimator():
                        arc_v=inst.arc_v, num_nodes=inst.num_nodes,
                        num_arcs=inst.num_arcs)
     host_op = tpl.make_kkt_operator(arrays.quad_costs, arrays.arc_u,
-                                    arrays.arc_v, arrays.num_nodes,
-                                    backend="xla", dtype=jnp.float64)
+                                    arrays.arc_v, arrays.num_nodes, dtype=jnp.float64)
     key = jax.random.key(11)
     f = lambda x: x**2
     res_host = slq_trace(host_op, f, k=4, num_probes=8, key=key)
@@ -346,42 +345,43 @@ def test_adaptive_slq_cap_is_exact():
 
 
 class TestAdaptiveOnProductionTiers:
-    """slq_trace_adaptive on the fused single-chip and arc-sharded paths:
-    the shared adaptive driver draws batches through the tier's kernel
-    and certifies the target standard error."""
+    """slq_trace_adaptive on the KKT operator, single-device and
+    row-partitioned: the shared adaptive driver draws batches through the
+    operator's matvec and certifies the target standard error."""
 
     def _kkt(self, rng, m=300, p=120):
         u = rng.integers(0, p, m).astype(np.int32)
         v = ((u + 1 + rng.integers(0, p - 1, m)) % p).astype(np.int32)
-        d = rng.uniform(1.0, 3.0, m).astype(np.float32)
+        d = rng.uniform(1.0, 3.0, m)
         return d, u, v, p
 
-    def test_fused_adaptive(self, rng):
-        from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver
-
+    def test_kkt_operator_adaptive(self, rng):
         d, u, v, p = self._kkt(rng)
-        s = FusedKKTSolver(d, u, v, p, interpret=True)
-        res = s.slq_trace_adaptive(lambda t: t * t, k=8, batch=4,
-                                   target_rel_stderr=0.2, max_probes=24,
-                                   key=jax.random.key(3))
-        truth = float(np.sum(d.astype(np.float64) ** 2) + 4 * len(d))
+        op = tpl.make_kkt_operator(d, u, v, p, dtype=jnp.float64)
+        res = tpl.slq_trace_adaptive(op, lambda t: t * t, k=8, batch=4,
+                                     target_rel_stderr=0.2, max_probes=24,
+                                     key=jax.random.key(3))
+        truth = float(np.sum(d ** 2) + 4 * len(d))
         assert res.samples.shape[0] >= 8  # two-batch minimum
         assert abs(float(res.estimate) - truth) < 0.3 * truth
         # certified or capped
         assert (float(res.stderr) <= 0.2 * abs(float(res.estimate))
                 or res.samples.shape[0] == 24)
 
-    def test_sharded_fused_adaptive(self, rng):
+    def test_kkt_sharded_adaptive(self, rng):
         from two_pass_lanczos_tpu.parallel import (
-            ShardedFusedKKTSolver, make_mesh,
+            ShardedSparseOperator, make_mesh,
         )
+        from two_pass_lanczos_tpu.utils.data_loader import KKTArrays
 
         d, u, v, p = self._kkt(rng)
-        s = ShardedFusedKKTSolver(d, u, v, p, make_mesh(2), interpret=True)
+        arrays = KKTArrays(quad_costs=d, arc_u=u, arc_v=v, num_nodes=p,
+                           num_arcs=len(d))
+        s = ShardedSparseOperator.from_kkt_arrays(arrays, make_mesh(2))
         res = s.slq_trace_adaptive(lambda t: t * t, k=8, batch=4,
                                    target_rel_stderr=0.2, max_probes=16,
                                    key=jax.random.key(4))
-        truth = float(np.sum(d.astype(np.float64) ** 2) + 4 * len(d))
+        truth = float(np.sum(d ** 2) + 4 * len(d))
         assert abs(float(res.estimate) - truth) < 0.3 * truth
 
     def test_generic_sharded_adaptive(self, rng):

@@ -1,6 +1,6 @@
-"""two_pass_lanczos_tpu — a TPU-native sparse Krylov library for f(A)·b.
+"""two_pass_lanczos_tpu — a sparse Krylov library for f(A)·b in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the Rust
+A from-scratch JAX/XLA library with the capabilities of the Rust
 reference ``lukefleed/two-pass-lanczos``: computing the action of a matrix
 function on a vector, x = f(A)·b, for large sparse Hermitian A via the
 symmetric Lanczos process, in two variants with an explicit memory/compute
@@ -61,7 +61,6 @@ from two_pass_lanczos_tpu.operators import (
     DiagonalOperator,
     KKTOperator,
     LinearOperator,
-    PallasKKTOperator,
     SparseOperator,
     as_operator,
     make_kkt_operator,
@@ -112,8 +111,6 @@ from two_pass_lanczos_tpu.slq import (
     slq_trace,
     slq_trace_adaptive,
 )
-from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver
-from two_pass_lanczos_tpu.ops.kkt_fused_df import DFFusedKKTSolver
 from two_pass_lanczos_tpu.solvers import lanczos, lanczos_two_pass, solve_fAb
 
 __version__ = "0.1.0"
@@ -138,11 +135,9 @@ __all__ = [
     "DiagonalOperator",
     "SparseOperator",
     "KKTOperator",
-    "PallasKKTOperator",
     "make_kkt_operator",
     "CallableOperator",
     "as_operator",
-    "FusedKKTSolver",
     # matrix functions
     "make_inv_solver",
     "make_exp_solver",
@@ -186,10 +181,9 @@ __all__ = [
     "slq_trace_adaptive",
     "slq_logdet",
     "slq_spectral_density",
-    # compensated-precision (double-float) TPU path
+    # compensated-precision (double-float) path
     "DFDiagonalOperator",
     "DFKKTOperator",
-    "DFFusedKKTSolver",
     "lanczos_pass_one_df",
     "solve_fAb_df",
     # errors

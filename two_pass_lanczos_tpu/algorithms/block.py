@@ -15,13 +15,13 @@ buys over p independent runs:
 * **clustered/degenerate spectra**: a block of width p resolves
   eigenvalue multiplicities ≤ p that a single-vector Krylov space is
   blind to — fewer block steps than the worst single-vector k;
-* **MXU shape**: every update is an (n, p)×(p, p) or (p, n)×(n, p)
-  matmul and the matvec runs on a whole block — tall-skinny matmuls are
-  the TPU's native diet, vs p separate GEMV streams;
+* **matmul shape**: every update is an (n, p)×(p, p) or (p, n)×(n, p)
+  matmul and the matvec runs on a whole block — tall-skinny matmuls use
+  an accelerator far better than p separate GEMV streams;
 * **shared matvec stream**: sparse A is read once per block step for all
   p vectors.
 
-TPU-first structure: the whole pass is one ``lax.scan``; the basis blocks
+Structure: the whole pass is one ``lax.scan``; the basis blocks
 (k, n, p) live in the scan outputs; the p×p QR per step is
 ``jnp.linalg.qr`` (tiny, device-side). Breakdown = the residual block
 dropping rank: detected via min |diag R| ≤ 1000·ε·‖·‖ (the library's

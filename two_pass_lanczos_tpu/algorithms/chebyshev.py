@@ -14,11 +14,11 @@ make it worth shipping alongside the Lanczos paths:
 * **O(n) memory, ONE pass, d matvecs** (vs 2k for two-pass Lanczos) — no
   basis, no second pass, no (α, β) storage;
 * **no orthogonality to lose**: the recurrence is forward-stable on
-  [a, b] (|T_j| ≤ 1), so f32/TPU behavior is benign where the Lanczos
+  [a, b] (|T_j| ≤ 1), so f32 behavior is benign where the Lanczos
   recurrence suffers forward instability at large k;
-* **pure matvec chain** under one ``lax.scan`` — the TPU-friendliest
+* **pure matvec chain** under one ``lax.scan`` — the simplest compiled
   control flow there is, and it works unchanged through any matvec
-  (XLA, Pallas-backed, sharded).
+  (single-device or sharded).
 
 The price: convergence depends on f's smoothness on [a, b] (not on the
 spectrum's point distribution, which Lanczos adapts to), and the interval
@@ -183,9 +183,8 @@ def chebyshev_scan(matvec, b_in, cs, scale):
     own (see :meth:`parallel.sharded.ShardedSparseOperator.chebyshev_fAb`).
 
     Pytree-generic: ``b_in`` may be any pytree of arrays with ``matvec``
-    mapping that pytree to a like pytree (e.g. the fused solvers'
-    duplicated (xu, xv, xn) rep — every recurrence update is elementwise,
-    so the duplication invariant is preserved). On a plain array the
+    mapping that pytree to a like pytree (every recurrence update is
+    elementwise, so any pytree layout is preserved). On a plain array the
     tree_maps execute the identical elementwise ops as before.
     """
     alpha, beta = scale[0], scale[1]

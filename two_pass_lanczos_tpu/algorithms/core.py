@@ -1,4 +1,4 @@
-"""Core Lanczos recurrence, expressed the TPU way.
+"""Core Lanczos recurrence, expressed as compiled scans.
 
 The reference implements the three-term recurrence as a stateful iterator with
 explicit workspace cycling (reference ``src/algorithms/mod.rs:167-341``:
@@ -49,15 +49,13 @@ __all__ = [
 def f32_matmul_precision(fn):
     """Trace ``fn`` under ``jax.default_matmul_precision("float32")``.
 
-    TPU MXU dots default to bfloat16-input precision (``Precision.DEFAULT``),
-    which caps any GEMM/GEMV at ~3 decimal digits regardless of the f32
-    storage dtype. CPU dots are exact-dtype, so CPU tests cannot catch the
-    gap — it was measured on-chip: ``solve_fAb_block`` at DEFAULT precision
-    hit rel 5.5e-3 where the CPU harness pins ~1e-6. Every GEMM-heavy
+    At ``Precision.DEFAULT`` a GPU runs f32 matrix products in TF32, which
+    keeps ~3 decimal digits regardless of the f32 storage dtype. CPU dots
+    are exact-dtype, so CPU tests cannot catch the gap. Every GEMM-heavy
     capability path (block QR recurrence, CGS2 sweeps, basis contractions)
     must trace under this decorator. f64/CPU paths are unaffected, and the
-    scalar-reduction single-vector recurrence never used the MXU, so its
-    bit-exact replay contract is untouched.
+    single-vector recurrence uses elementwise products and reductions only,
+    so its bit-exact replay contract is untouched.
     """
 
     @functools.wraps(fn)
@@ -73,7 +71,7 @@ def breakdown_tolerance(dtype) -> float:
 
     The reference hardcodes ``1000 · ε_f64`` for all field types
     (``src/algorithms/mod.rs:140-143``); we generalize to the working real
-    dtype so that f32/bf16 TPU paths detect breakdown at a meaningful scale
+    dtype so that f32/bf16 paths detect breakdown at a meaningful scale
     (for f64 the value is identical to the reference's).
     """
     real = jnp.finfo(dtype).dtype  # finfo of complex dtype reports real eps
@@ -116,7 +114,7 @@ class LanczosDecomposition:
     """Scalar output of a Lanczos pass — the complete definition of T_k.
 
     Reference parity: ``LanczosDecomposition`` (``src/algorithms/mod.rs:94-108``)
-    with TPU-native fixed-shape storage:
+    with fixed-shape storage:
 
     * ``alphas``: shape ``(k,)``; entries ``[steps_taken:]`` are zero padding.
     * ``betas``:  shape ``(k,)``; ``betas[j]`` is β_{j+1}. Valid off-diagonal

@@ -1,23 +1,22 @@
-"""Compensated-precision (double-float) Lanczos: near-f64 accuracy on TPU.
+"""Compensated-precision (double-float) Lanczos: near-f64 accuracy from f32.
 
-SURVEY §7 hard part 5 / VERDICT r1 item 4: the reference runs everything in
-f64; on TPU f64 is unavailable on the fast path, and plain f32 coefficients
+SURVEY §7 hard part 5: the reference runs everything in f64; on hardware
+without fast f64 (where this path began), plain f32 coefficients
 diverge from the f64 oracle by O(1) at k≈100 on indefinite spectra (forward
 instability amplifies per-step rounding ~exponentially). This module runs
 the *entire* recurrence — matvec, orthogonalization axpys, inner products,
 normalization — in double-float arithmetic (:mod:`two_pass_lanczos_tpu.ops
 .df`, ~49-bit effective mantissa), so the per-step rounding that instability
 amplifies is ~2⁻⁴⁹ instead of 2⁻²⁴. Validated against the CPU f64 oracle at
-k=200 on the inv/ill-conditioned spectrum (``tests/test_df.py``); REPORT.md
-§7 records the measured max |Δα|, |Δβ| and the kernel-time cost.
+k=200 on the inv/ill-conditioned spectrum (``tests/test_df.py``). A GPU
+with f64 in hardware (the H100) needs none of this: run in f64.
 
-Everything is elementwise VPU code under ``lax.scan`` — jittable, TPU-fast,
-shardable. The projected f(T_k)e₁ solve recombines (hi, lo) → f64 on the
+Everything is elementwise code under ``lax.scan`` — jittable, shardable. The projected f(T_k)e₁ solve recombines (hi, lo) → f64 on the
 host exactly as the plain path hands f64 scalars to the user closure.
 
 Cost: a df matvec/axpy is ~10-20 f32 flops per element vs 1 — but the
-Lanczos hot loop on TPU is bandwidth/gather-bound, not VPU-flop-bound, so
-the end-to-end slowdown is far below the flop ratio (measured in REPORT.md).
+Lanczos hot loop is bandwidth/gather-bound, not flop-bound, so the
+end-to-end slowdown is far below the flop ratio.
 """
 
 from __future__ import annotations
@@ -141,8 +140,7 @@ class DFKKTOperator:
         # The dense (p, K) table is O(p · max_degree): on hub-heavy graphs
         # (star-like topologies) that is O(n·m) and OOMs long before the
         # instance itself is large. Guard with a clear error instead of an
-        # opaque allocation failure; the sharded/fused df paths don't build
-        # this table.
+        # opaque allocation failure.
         MAX_TABLE_ENTRIES = 1 << 26  # 256 MB of int32 per endpoint table
 
         def table(key):
@@ -154,10 +152,10 @@ class DFKKTOperator:
                     f"DFKKTOperator.from_f64: dense segmented-sum table would"
                     f" be {p} nodes x {k_pad} slots (max degree {k_max}) ="
                     f" {p * k_pad} int32 entries, over the"
-                    f" {MAX_TABLE_ENTRIES}-entry cap. This hub-heavy topology"
-                    f" needs the arc-sharded df path instead:"
-                    f" ops.kkt_fused_df.DFFusedKKTSolver (single chip) or"
-                    f" parallel.DFShardedFusedKKTSolver (mesh).")
+                    f" {MAX_TABLE_ENTRIES}-entry cap. For this hub-heavy"
+                    f" topology use the f64 KKTOperator"
+                    f" (make_kkt_operator(..., dtype=jnp.float64)), which"
+                    f" needs no table, on a device with f64 arithmetic.")
             tab = np.full((p, k_pad), m, np.int32)  # m = zero pad slot
             order = np.argsort(key, kind="stable")
             ks = key[order]

@@ -1,11 +1,11 @@
 """Standard one-pass Lanczos: full basis stored, O(nk) memory.
 
 Reference parity: ``lanczos_standard`` (``src/algorithms/lanczos.rs:55-156``).
-TPU-native differences:
+Differences:
 
 * The basis lives as the stacked scan output ``V`` of shape ``(k, n)`` —
   row-major over iterations, so the final reconstruction ``x = Vᵀ·y`` is a
-  single (n×k)·(k,) GEMV on the MXU, the analogue of the reference's one
+  single (n×k)·(k,) GEMV, the analogue of the reference's one
   ``matmul`` with α-scaling (``src/solvers.rs:96-104``).
 * Early termination (breakdown) pads trailing rows with zeros rather than
   reallocating; ``decomposition.steps_taken`` delimits the valid prefix.

@@ -11,13 +11,13 @@ REPORT.md and the verify notes).
 This module is the opt-in fix for the one-pass variant, where the basis is
 stored anyway: classical Gram-Schmidt against the full stored basis, done
 ``sweeps`` times per step ("twice is enough", Kahan–Parlett — CGS2 restores
-orthogonality to working precision). Expressed the TPU way:
+orthogonality to working precision). Expressed as a compiled scan:
 
 * the (k, n) basis lives in the scan **carry** — XLA aliases the carry
   across iterations, so it is ONE buffer updated in place by
   ``dynamic_update_index_in_dim``, not k copies;
 * each sweep is two (k, n) contractions — ``proj = conj(V)·w`` and
-  ``w -= Vᵀ·proj`` — i.e. MXU GEMVs over the *entire* fixed-shape basis.
+  ``w -= Vᵀ·proj`` — i.e. GEMVs over the *entire* fixed-shape basis.
   Rows beyond the current step are zero and contribute nothing, which
   keeps the scan body shape-static (no data-dependent slicing);
 * the classical α correction folds ``proj[j]`` (the residual component
@@ -97,7 +97,7 @@ def make_pass_one_step_reorth(matvec, dtype, *, sweeps: int = 2,
         w = w - alpha.astype(dt) * lc.v_curr
 
         for s in range(sweeps):
-            # HIGHEST: TPU DEFAULT dot precision is bf16-class, which would
+            # HIGHEST: DEFAULT f32 dot precision is TF32 on a GPU, which would
             # cap the orthogonality defect near 1e-3 — exactly what these
             # sweeps exist to remove. Scoped per-einsum (not a module-wide
             # context) so the plain-recurrence ops above keep their exact

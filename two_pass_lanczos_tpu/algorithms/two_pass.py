@@ -74,7 +74,7 @@ def _reconstruction_scan(
 
     # Zero-b is an *input* check (reference src/algorithms/mod.rs:270-276),
     # not a magnitude cutoff: gate v1 on zero_tolerance (underflow boundary),
-    # exactly as core.init_carry and the fused kernels do. Using
+    # exactly as core.init_carry does. Using
     # breakdown_tolerance here (1000*eps ~ 1.2e-4 in f32) silently zeroed
     # valid small-norm f32 inputs.
     tol = zero_tolerance(dt)
@@ -88,7 +88,9 @@ def _reconstruction_scan(
     idx = jnp.arange(k)
     y_full = jnp.where(idx < steps, y_k.astype(dt), jnp.zeros((), dt))
 
-    x0 = jnp.einsum("...,n->...n", y_full[..., 0], v1)
+    # products, not dots: an einsum here would be a K=1 dot_general, which
+    # a GPU may run in TF32 for f32
+    x0 = y_full[..., 0, None] * v1
 
     alphas = decomposition.alphas
     betas = decomposition.betas
@@ -116,7 +118,7 @@ def _reconstruction_scan(
 
         # y_next is already zero beyond `steps`, and v_next is zeroed when
         # inactive, so the accumulate is naturally masked.
-        x_acc = x_acc + jnp.einsum("...,n->...n", y_next, v_next)
+        x_acc = x_acc + y_next[..., None] * v_next
 
         v_prev_n = jnp.where(active, v_curr, v_prev)
         v_curr_n = jnp.where(active, v_next, v_curr)

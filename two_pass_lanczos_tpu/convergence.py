@@ -6,7 +6,7 @@ leaves the stopping *criterion* entirely to the user. This module supplies
 the standard criterion for f(A)·b Lanczos — the lagged difference of
 iterates — in a form that needs **only the (α, β) coefficients**, so it
 plugs into every callback-accepting path in this library (host solvers,
-fused chunked kernels, both sharded solvers) without ever materializing the
+the sharded solver) without ever materializing the
 Krylov basis.
 
 The identity it rests on: the Lanczos approximation after ``s`` steps is
@@ -105,8 +105,7 @@ def make_convergence_callback(
     Returns a callback with the library-wide signature
     ``callback(steps, V_view, (alphas, betas)) -> bool`` (``False`` = stop)
     accepted by :func:`~two_pass_lanczos_tpu.solvers.lanczos`,
-    :func:`~two_pass_lanczos_tpu.solvers.lanczos_two_pass`,
-    ``FusedKKTSolver.solve``, ``ShardedFusedKKTSolver.solve`` and
+    :func:`~two_pass_lanczos_tpu.solvers.lanczos_two_pass` and
     ``ShardedSparseOperator.solve_fAb`` — it ignores the basis view, so the
     scalars-only distributed paths work unchanged.
 
@@ -189,8 +188,7 @@ def make_radau_error_callback(lambda_min: float, tol: float, *,
     any f, any symmetric A), this stop is backed by the Golub–Meurant
     enclosure — when it fires, ``‖x − x_j‖_A / ‖x_j‖_A ≤ tol`` holds up to
     finite-precision slack. Same library-wide callback signature; works on
-    every callback-accepting path (host, fused chunked, both sharded
-    solvers). Evaluated bounds are recorded as ``callback.history``
+    every callback-accepting path (host, sharded). Evaluated bounds are recorded as ``callback.history``
     (``(step_certified, bound)`` pairs) and the firing step as
     ``callback.stopped_at``.
 

@@ -2,14 +2,14 @@
 
 The reference library stops at f(A)·b; the other thing every Lanczos user
 asks of the same machinery is extreme eigenpairs (`scipy.sparse.linalg
-.eigsh`-class capability). This module provides it TPU-natively with the
+.eigsh`-class capability). This module provides it with the
 thick-restart method (Wu & Simon, "Thick-restart Lanczos method for large
 symmetric eigenvalue problems", SIAM J. Matrix Anal. 2000), formulated the
 way that maps best onto the hardware:
 
 * the expansion phase keeps the **full basis resident** and orthogonalizes
   every new vector against all of it with CGS2 — two (ncv+1, n) GEMV
-  sweeps per step, MXU work, no modified-Gram-Schmidt serialization
+  sweeps per step, matmul work, no modified-Gram-Schmidt serialization
   (the same design as :mod:`algorithms.reorth`);
 * the projected matrix H is maintained **dense** (ncv is small); its
   eigendecomposition runs on-device inside the same jit;
@@ -32,8 +32,7 @@ invariant subspace. (Eigenvalue *multiplicities* still surface only
 through these injections; for reliably resolving high-multiplicity
 clusters use a block method.)
 
-Works with any pytree :class:`LinearOperator` (XLA-path matvecs); f64 on
-CPU, f32 on TPU.
+Works with any pytree :class:`LinearOperator`, in f32 or f64.
 """
 
 from __future__ import annotations
@@ -111,7 +110,7 @@ def _expand_and_ritz(matvec, v_basis, h_proj, start, key, *,
         v, h, key_j, _ = carry
         w = matvec(v[j])
         mask = (jnp.arange(ncv + 1) <= j).astype(rdt)
-        # CGS2: two masked sweeps against the whole resident basis (MXU).
+        # CGS2: two masked sweeps against the whole resident basis.
         c1 = project(v, w, mask)
         w = w - v.T @ c1
         c2 = project(v, w, mask)

@@ -5,7 +5,7 @@ Mirrors the capability of the reference error module (see reference
 covering breakdown, dimension mismatches, invalid inputs, parameter
 mismatches, eigendecomposition failures, and user-solver failures.
 
-Design note (TPU-native): numerical *breakdown* is normally a graceful early
+Design note: numerical *breakdown* is normally a graceful early
 termination (``steps_taken`` truncates downstream work, exactly like the
 reference); :class:`BreakdownError` is raised only when the solver is
 explicitly asked to treat breakdown as fatal via

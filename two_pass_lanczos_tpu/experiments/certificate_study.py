@@ -45,12 +45,12 @@ def build_parser():
 def main(argv=None) -> int:
     from two_pass_lanczos_tpu.experiments.common import (
         log,
-        setup_logging,
+        setup_cli,
         write_csv,
     )
 
     args = build_parser().parse_args(argv)
-    setup_logging()
+    setup_cli()
 
     import jax
 

@@ -37,11 +37,11 @@ def build_parser():
 
 
 def main(argv=None) -> int:
-    from two_pass_lanczos_tpu.experiments.common import log, setup_logging
+    from two_pass_lanczos_tpu.experiments.common import log, setup_cli
     from two_pass_lanczos_tpu.models.generator import instance_basename
 
     args = build_parser().parse_args(argv)
-    setup_logging()
+    setup_cli()
     outdir = Path(args.output_dir)
     outdir.mkdir(parents=True, exist_ok=True)
     base = instance_basename(args.arcs, args.rho, args.instance_id,

@@ -45,7 +45,6 @@ def _run_variant(args, variant, emit, only_k=None):
     rng = np.random.default_rng(args.seed)
     b = jnp.asarray(rng.standard_normal(args.size), dtype=dtype)
     method = "one_pass" if variant == "standard" else "two_pass"
-    itemsize = jnp.dtype(dtype).itemsize
     ks = (range(args.k_start, args.k_end + 1, args.k_step)
           if only_k is None else [only_k])
     for k in ks:
@@ -54,8 +53,7 @@ def _run_variant(args, variant, emit, only_k=None):
         _, dt = timed_solve(tpl.solve_fAb, op, b, k=k, f="inv",
                             method=method, repeats=args.repeats)
         rss = peak_memory_kb()
-        basis = k * args.size * itemsize if method == "one_pass" else 0
-        dev_kb = device_peak_kb(basis)
+        dev_kb = device_peak_kb()
         log.info("%s k=%d time=%.4fs (min %.4fs) mem=%dKB dev=%dKB",
                  variant, k, dt, dt.min_s, rss, dev_kb)
         emit(variant, k, float(dt), dt.min_s, rss, dev_kb)
@@ -63,12 +61,12 @@ def _run_variant(args, variant, emit, only_k=None):
 
 def main(argv=None) -> int:
     from two_pass_lanczos_tpu.experiments.common import (
-        VARIANTS, emit_row, force_cpu_f64, run_orchestrated, setup_logging,
+        VARIANTS, emit_row, force_cpu_f64, run_orchestrated, setup_cli,
         worker_variant, write_csv,
     )
 
     args = build_parser().parse_args(argv)
-    setup_logging()
+    setup_cli()
     if args.cpu_f64:
         force_cpu_f64()
 

@@ -26,18 +26,23 @@ def build_parser():
     p.add_argument("--k-step", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--output", required=True)
-    p.add_argument("--cpu-f64", action="store_true", default=True)
-    p.add_argument("--device", dest="cpu_f64", action="store_false")
+    p.add_argument("--cpu-f64", action="store_true",
+                   help="pin the CPU (the reference's own platform); f64 "
+                        "runs on the default backend either way")
     return p
 
 
 def main(argv=None) -> int:
-    from two_pass_lanczos_tpu.experiments.common import setup_logging, force_cpu_f64, write_csv, log
+    from two_pass_lanczos_tpu.experiments.common import setup_cli, force_cpu_f64, write_csv, log
 
     args = build_parser().parse_args(argv)
-    setup_logging()
+    setup_cli()
     if args.cpu_f64:
         force_cpu_f64()
+    else:
+        import jax
+
+        jax.config.update("jax_enable_x64", True)
 
     import jax.numpy as jnp
 
@@ -77,8 +82,8 @@ def main(argv=None) -> int:
 
 
 def _solution_from_basis(v_k, y):
-    # HIGHEST so the measured curves reflect algorithmic error, not MXU
-    # input rounding (on TPU the default dot precision is bf16-class)
+    # HIGHEST so the measured curves reflect algorithmic error, not input
+    # rounding (on a GPU the default f32 dot precision is TF32)
     import jax
     import jax.numpy as jnp
 

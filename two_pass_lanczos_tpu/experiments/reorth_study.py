@@ -7,7 +7,7 @@ collapse of the plain three-term recurrence (the phenomenon behind
 comparison that motivates ``reorth=True`` (``algorithms/reorth.py``): per
 k, the one-pass solve is run twice from the same seeded b — the plain
 recurrence and the CGS2-reorthogonalized one — in the dtype where the
-instability actually lives (f32, the TPU-native precision; ``--dtype
+instability actually lives (f32; ``--dtype
 f64`` reproduces the "both fine" control).
 
 CSV schema (new artifact, guarded by ``test_results_integrity.py``)::
@@ -45,23 +45,23 @@ def build_parser():
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32",
                    help="f32 (default) exhibits the instability; f64 is the "
                         "control where both variants coincide")
-    p.add_argument("--device", action="store_true",
-                   help="run on the default accelerator instead of CPU")
+    p.add_argument("--cpu", action="store_true",
+                   help="pin the CPU instead of the default backend")
     p.add_argument("--output", required=True)
     return p
 
 
 def main(argv=None) -> int:
     from two_pass_lanczos_tpu.experiments.common import (
-        setup_logging, write_csv, log,
+        setup_cli, write_csv, log,
     )
 
     args = build_parser().parse_args(argv)
-    setup_logging()
+    setup_cli()
 
     import jax
 
-    if not args.device:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     if args.dtype == "f64":
         jax.config.update("jax_enable_x64", True)
@@ -100,7 +100,7 @@ def main(argv=None) -> int:
             decomp, basis = pass_one_scan(op.matvec, b, k, emit_basis=True)
         y = padded_f_e1(decomp, args.function) * decomp.b_norm
         # HIGHEST so the published curves measure algorithmic error, not
-        # MXU input rounding (default dot precision is bf16-class on TPU)
+        # input rounding (the default f32 dot precision is TF32 on a GPU)
         x = jnp.einsum("kn,k->n", basis, y.astype(basis.dtype),
                        precision=jax.lax.Precision.HIGHEST)
         s = int(decomp.steps_taken)

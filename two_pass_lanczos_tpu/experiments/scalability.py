@@ -4,9 +4,9 @@ Sweeps the arc count, generating each instance (with validation and up to 5
 seed-rotating retries, reference ``scalability.rs:223-299``), then timing both
 variants. CSV rows are flushed incrementally per record so partial runs
 preserve data (``scalability.rs:198-200``). Schema: the reference's
-``variant,n,k,time_s,rss_kb`` plus ``device_peak_kb`` (device-side memory:
-PJRT peak when exposed, live array bytes + analytic one-pass basis
-otherwise — ``common.device_peak_kb``).
+``variant,n,k,time_s,rss_kb`` plus ``time_min_s`` and ``device_peak_kb``
+(the PJRT device peak — ``common.device_peak_kb``). Runs on JAX's default
+backend; ``--cpu-f64`` pins the CPU in f64, as the reference runs.
 
 Process model: by default everything runs in-process, where ``rss_kb`` is the
 PROCESS-CUMULATIVE peak. ``--isolate`` reproduces the reference's model — one
@@ -30,8 +30,6 @@ def build_parser():
     p.add_argument("--k", type=int, default=500)
     p.add_argument("--rho", type=int, default=3)
     p.add_argument("--output", required=True)
-    p.add_argument("--backend", choices=["auto", "xla", "pallas", "fused"],
-                   default="auto")
     p.add_argument("--cpu-f64", action="store_true")
     p.add_argument("--repeats", type=int, default=1,
                    help="timed repetitions per cell; median + min recorded")
@@ -66,58 +64,25 @@ def _generate_validated(arcs, rho, max_retries):
 
 def _build_solve(args, arcs):
     """Generate + validate one instance; return (n, solve(method) closure)."""
-    import numpy as np
-
     from two_pass_lanczos_tpu.experiments.common import (
-        cpu_dtype, known_solution_problem, make_fused_solver, resolve_backend,
+        experiment_dtype, known_solution_problem,
     )
 
     import two_pass_lanczos_tpu as tpl
 
-    backend = resolve_backend(args.backend)
     inst = _generate_validated(arcs, args.rho, args.max_retries)
     n = inst.num_arcs + inst.num_nodes
-
-    solver = None
-    if backend == "fused":
-        solver = make_fused_solver(inst.quad_costs, inst.arc_u, inst.arc_v,
-                                   inst.num_nodes)
-    if solver is not None:
-        x_true = np.full(n, 1.0 / np.sqrt(n), np.float32)
-        b = solver.matvec(x_true)
-
-        def solve(method):
-            x, _ = solver.solve(b, k=args.k, f="inv", method=method, raw=True)
-            return x
-
-        lay = solver.layout
-
-        def basis_bytes(method):
-            if method != "one_pass":
-                return 0
-            return args.k * (lay.u.R + lay.P2) * 128 * 4
-
-        return n, solve, basis_bytes
-
-    op = tpl.make_kkt_operator(
-        inst.quad_costs, inst.arc_u, inst.arc_v, inst.num_nodes,
-        dtype=cpu_dtype(),
-        backend="pallas" if backend == "fused" else backend,
-    )
+    op = tpl.make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
+                               inst.num_nodes, dtype=experiment_dtype())
     _, b_dev = known_solution_problem(op, n)
 
     def solve(method):
         return tpl.solve_fAb(op, b_dev, k=args.k, f="inv", method=method)
 
-    itemsize = np.dtype(op.dtype).itemsize
-
-    def basis_bytes(method):
-        return args.k * n * itemsize if method == "one_pass" else 0
-
-    return n, solve, basis_bytes
+    return n, solve
 
 
-def _measure(args, variant, solve, n, emit, basis_bytes=lambda m: 0):
+def _measure(args, variant, solve, n, emit):
     from two_pass_lanczos_tpu.experiments.common import (
         device_peak_kb, log, peak_memory_kb, timed_solve,
     )
@@ -126,7 +91,7 @@ def _measure(args, variant, solve, n, emit, basis_bytes=lambda m: 0):
     timed_solve(solve, method)  # warm/compile
     _, dt = timed_solve(solve, method, repeats=args.repeats)
     rss = peak_memory_kb()
-    dev_kb = device_peak_kb(basis_bytes(method))
+    dev_kb = device_peak_kb()
     log.info("%s n=%d k=%d time=%.4fs (min %.4fs) mem=%dKB dev=%dKB",
              variant, n, args.k, dt, dt.min_s, rss, dev_kb)
     emit(variant, n, args.k, float(dt), dt.min_s, rss, dev_kb)
@@ -134,20 +99,20 @@ def _measure(args, variant, solve, n, emit, basis_bytes=lambda m: 0):
 
 def main(argv=None) -> int:
     from two_pass_lanczos_tpu.experiments.common import (
-        VARIANTS, emit_row, force_cpu_f64, run_orchestrated, setup_logging,
+        VARIANTS, emit_row, force_cpu_f64, run_orchestrated, setup_cli,
         worker_variant,
     )
 
     args = build_parser().parse_args(argv)
-    setup_logging()
+    setup_cli()
     if args.cpu_f64:
         force_cpu_f64()
 
     wv = worker_variant()
     if wv is not None:  # worker: single (variant, size sweep) run on stdout
         for arcs in range(args.arcs_start, args.arcs_end + 1, args.arcs_step):
-            n, solve, basis_bytes = _build_solve(args, arcs)
-            _measure(args, wv, solve, n, emit_row, basis_bytes)
+            n, solve = _build_solve(args, arcs)
+            _measure(args, wv, solve, n, emit_row)
         return 0
 
     with open(args.output, "w", newline="") as fh:
@@ -167,7 +132,7 @@ def main(argv=None) -> int:
                     [MODULE, "--arcs-start", str(arcs), "--arcs-end",
                      str(arcs), "--arcs-step", str(args.arcs_step),
                      "--k", str(args.k), "--rho", str(args.rho),
-                     "--backend", args.backend, "--output", "/dev/null",
+                     "--output", "/dev/null",
                      "--repeats", str(args.repeats),
                      *(["--cpu-f64"] if args.cpu_f64 else [])],
                     lambda f: (f[0], int(f[1]), int(f[2]), float(f[3]),
@@ -187,9 +152,9 @@ def main(argv=None) -> int:
                 "reference-semantics artifact; use --isolate")
             for arcs in range(args.arcs_start, args.arcs_end + 1,
                               args.arcs_step):
-                n, solve, basis_bytes = _build_solve(args, arcs)
+                n, solve = _build_solve(args, arcs)
                 for variant in VARIANTS:
-                    _measure(args, variant, solve, n, emit, basis_bytes)
+                    _measure(args, variant, solve, n, emit)
 
     from two_pass_lanczos_tpu.experiments.common import log
 

@@ -31,26 +31,26 @@ def build_parser():
     p.add_argument("--k-step", type=int, default=10)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--output", required=True)
-    p.add_argument("--cpu-f64", action="store_true", default=True,
-                   help="run on CPU in f64 (reference precision; default)")
-    p.add_argument("--device", dest="cpu_f64", action="store_false",
-                   help="run on the default accelerator in its native dtype")
+    p.add_argument("--cpu-f64", action="store_true",
+                   help="pin the CPU (the reference's own platform); f64 "
+                        "runs on the default backend either way")
     p.add_argument("--precision", choices=["native", "df"], default="native",
                    help="'df' runs both variants through the double-float "
-                        "path (algorithms/df.py) — reference-class accuracy "
-                        "on f32 accelerators; implies --device")
+                        "path (algorithms/df.py) in f32 arithmetic")
     return p
 
 
 def main(argv=None) -> int:
-    from two_pass_lanczos_tpu.experiments.common import setup_logging, force_cpu_f64, write_csv, log
+    from two_pass_lanczos_tpu.experiments.common import setup_cli, force_cpu_f64, write_csv, log
 
     args = build_parser().parse_args(argv)
-    setup_logging()
-    if args.precision == "df":
-        args.cpu_f64 = False  # the point: reference-class accuracy ON-chip
+    setup_cli()
     if args.cpu_f64:
         force_cpu_f64()
+    elif args.precision == "native":
+        import jax
+
+        jax.config.update("jax_enable_x64", True)
 
     import jax.numpy as jnp
 

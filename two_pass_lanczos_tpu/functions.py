@@ -25,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from two_pass_lanczos_tpu.algorithms.core import LanczosDecomposition
-from two_pass_lanczos_tpu.ops.tridiag import assemble_tridiagonal
+from two_pass_lanczos_tpu.ops.tridiag import assemble_tridiagonal, eigh_qr
 
 __all__ = [
     "host_f_tk_solve",
@@ -101,7 +101,9 @@ def make_function_solver(f: Callable) -> Callable:
     def solver(alphas, betas):
         lam, q = eigh_tridiagonal(jnp.asarray(alphas), jnp.asarray(betas))
         # f(T) e1 = Q f(Λ) Qᵀ e1 — only the first row of Q is needed.
-        return q @ (f(lam) * q[0, :])
+        # HIGHEST: a GPU runs a DEFAULT-precision f32 product in TF32.
+        return jnp.matmul(q, f(lam) * q[0, :],
+                          precision=jax.lax.Precision.HIGHEST)
 
     return solver
 
@@ -158,8 +160,10 @@ def padded_f_e1(decomp: LanczosDecomposition, f) -> jax.Array:
         y = jnp.linalg.solve(t, e1)
     else:
         fn = jnp.exp if f == FUNC_EXP else f
-        lam, q = jnp.linalg.eigh(t)
-        y = q @ (fn(lam) * q[0, :])
+        lam, q = eigh_qr(t)
+        # HIGHEST: a GPU runs a DEFAULT-precision f32 product in TF32.
+        y = jnp.matmul(q, fn(lam) * q[0, :],
+                       precision=jax.lax.Precision.HIGHEST)
     # Explicitly mask the padding block (guards against eigensolver noise in
     # degenerate spectra).
     return jnp.where(jnp.arange(k) < decomp.steps_taken, y, jnp.zeros((), y.dtype))

@@ -1,10 +1,10 @@
 """KKT system construction: files → operators.
 
 The reference assembles an explicit sparse ``A = [[D, Eᵀ], [E, 0]]``
-(``src/utils/data_loader.rs:211-258``). TPU-native, we keep the structure
-implicit: :class:`~two_pass_lanczos_tpu.operators.KKTOperator` applies A from
-the diagonal of D and the arc endpoint arrays directly (2 gathers + 2
-scatter-adds per matvec). An explicit :class:`SortedCOO` form is also
+(``src/utils/data_loader.rs:211-258``). Here the structure stays implicit:
+:class:`~two_pass_lanczos_tpu.operators.KKTOperator` applies A from the
+diagonal of D and the arc endpoint arrays directly (2 gathers + 2
+fixed-order row reductions per matvec). An explicit :class:`SortedCOO` form is also
 provided for the generic-SpMV path and for dense cross-checks in tests.
 """
 
@@ -40,7 +40,7 @@ def kkt_operator_from_arrays(arrays: KKTArrays, dtype=jnp.float64) -> KKTSystem:
     return KKTSystem(
         operator=make_kkt_operator(
             arrays.quad_costs, arrays.arc_u, arrays.arc_v, arrays.num_nodes,
-            dtype=dtype, backend="xla",
+            dtype=dtype,
         ),
         num_nodes=arrays.num_nodes,
         num_arcs=arrays.num_arcs,

@@ -1,6 +1,6 @@
 """Observability: iteration callbacks, profiling, speed-of-light accounting.
 
-Reference parity and TPU adaptation:
+Reference parity and adaptation to compiled scans:
 
 * **Per-iteration callback** — the reference invokes a ``LanczosCallback``
   with ``(k, V_k view, T_k view)`` inside the hot loop with early-stop
@@ -14,8 +14,8 @@ Reference parity and TPU adaptation:
   exactly the effect early stopping has in the reference).
 * **Profiling** — ``jax.profiler`` trace contexts replacing the reference's
   ``Instant``-based timing (``tradeoff.rs:267-287``).
-* **Speed-of-light model** — the per-matvec byte/flop accounting demanded by
-  BASELINE.json's metric: achieved nnz/s against the HBM-bandwidth bound.
+* **Speed-of-light model** — the per-matvec byte accounting: achieved nnz/s
+  against the device-memory bandwidth bound of the device it ran on.
 """
 
 from __future__ import annotations
@@ -33,9 +33,10 @@ __all__ = [
     "find_stopping_point",
     "truncate_decomposition",
     "trace",
+    "PEAK_HBM_BYTES_PER_S",
+    "peak_hbm_bandwidth",
     "SoLReport",
     "kkt_spmv_sol",
-    "kkt_streaming_sol",
 ]
 
 
@@ -102,8 +103,23 @@ def trace(name: str, enabled: bool = True):
 # Speed-of-light accounting
 # ---------------------------------------------------------------------------
 
-#: HBM bandwidth per chip, bytes/s (TPU v5e spec: 819 GB/s).
-HBM_BW = {"tpu": 819e9, "cpu": 100e9}
+#: Published device-memory bandwidth, bytes/s, keyed by ``device_kind``.
+#: NVIDIA H100 SXM data sheet: 80 GB of HBM3 at 3.35 TB/s.
+PEAK_HBM_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
+
+
+def peak_hbm_bandwidth(device_kind: str) -> float:
+    """The published memory bandwidth of ``device_kind`` (a
+    ``jax.Device.device_kind``); a device missing from the table is an
+    error, never a default."""
+    try:
+        return PEAK_HBM_BYTES_PER_S[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published memory bandwidth for device kind {device_kind!r}; "
+            f"known: {sorted(PEAK_HBM_BYTES_PER_S)}") from None
 
 
 @dataclasses.dataclass
@@ -135,61 +151,22 @@ def kkt_spmv_sol(
     num_arcs: int,
     num_nodes: int,
     achieved_seconds: float,
+    device_kind: str,
     dtype_bytes: int = 4,
-    backend: str = "tpu",
 ) -> SoLReport:
-    """*Ideal-layout* speed-of-light bound for the structure-aware KKT matvec.
+    """*Ideal-layout* speed-of-light bound for the structure-aware KKT matvec
+    on ``device_kind``.
 
-    Minimum HBM traffic any single-ordering layout could achieve: the five
-    per-arc streams (u, v int32 reads = 4B·2; d, x_a reads + y_a write =
-    value bytes·3) plus the node vector in/out (negligible). This is the
-    information-theoretic floor — the production dual-sorted layout must
-    move ~2.1× more (see :func:`kkt_streaming_sol`), the price of turning
-    scatters into contiguous segmented sums.
+    Minimum device-memory traffic any single-ordering layout could achieve:
+    the five per-arc streams (u, v int32 reads = 4B·2; d, x_a reads + y_a
+    write = value bytes·3) plus the node vector in/out (negligible).
     """
     per_arc = 2 * 4 + 3 * dtype_bytes  # u, v int32 + d, x_a, y_a values
     bytes_total = num_arcs * per_arc + 2 * num_nodes * dtype_bytes
-    bw = HBM_BW.get(backend, 819e9)
     nnz = 5 * num_arcs
     return SoLReport(
         nnz=nnz,
         bytes_per_matvec=bytes_total,
-        sol_seconds=bytes_total / bw,
-        achieved_seconds=achieved_seconds,
-    )
-
-
-def kkt_streaming_sol(layout, achieved_seconds: float,
-                      backend: str = "tpu") -> SoLReport:
-    """Speed-of-light bound for the **dual-sorted streaming matvec**
-    (``ops/kkt_fused.kkt_streaming_matvec``) — the BASELINE.md per-chip
-    metric applies to this path (used beyond ~1.9M arcs and inside
-    ``ShardedFusedKKTSolver``).
-
-    Exact HBM traffic per matvec, from the kernel's BlockSpecs: per ordering
-    the grid streams the d (f32), es and eo (int16 when every endpoint
-    fits — the round-3 compressed layout), x read and y write planes, plus
-    the (C, 128, 4) i32 group table; the node table (P2, 128) is read once
-    and the node output written once (constant index maps — Pallas keeps
-    the block resident across the sequential grid). R counts *padded*
-    slots: the per-node 128-lane run padding is part of the layout's real
-    traffic, not overhead we get to ignore.
-
-    ``layout`` is a ``SortedKKTLayout``.
-    """
-    lane = 128
-    bytes_total = 0
-    for o in (layout.u, layout.v):
-        bytes_total += 3 * o.R * lane * 4  # d2, x, y
-        bytes_total += o.R * lane * o.es2.dtype.itemsize  # es2 (i16/i32)
-        bytes_total += o.R * lane * o.eo2.dtype.itemsize  # eo2 (i16/i32)
-        bytes_total += o.C * lane * 4 * 4  # gn3 (4 channels)
-        bytes_total += o.C * 4  # win (SMEM)
-    bytes_total += 2 * layout.P2 * lane * 4  # xn read + yn write
-    bw = HBM_BW.get(backend, 819e9)
-    return SoLReport(
-        nnz=5 * layout.m,
-        bytes_per_matvec=bytes_total,
-        sol_seconds=bytes_total / bw,
+        sol_seconds=bytes_total / peak_hbm_bandwidth(device_kind),
         achieved_seconds=achieved_seconds,
     )

@@ -2,7 +2,7 @@
 
 The reference's central abstraction is faer's ``matrix_free::LinOp`` — every
 algorithm takes an operator defined only by its action (reference
-``src/lib.rs:8-9``, ``src/algorithms/mod.rs:30``). The TPU-native equivalent
+``src/lib.rs:8-9``, ``src/algorithms/mod.rs:30``). The JAX equivalent
 is a *pytree-registered callable*: a small dataclass carrying device arrays,
 whose ``matvec`` is pure jnp and therefore traceable under ``jax.jit`` /
 ``lax.scan`` / ``shard_map``. Operators can be passed as jit arguments (they
@@ -10,7 +10,7 @@ flatten into their arrays) or closed over — both compile to the same HLO.
 
 Implementations:
 
-* :class:`DenseOperator`    — dense symmetric A, MXU matvec.
+* :class:`DenseOperator`    — dense symmetric A, matmul matvec.
 * :class:`DiagonalOperator` — diagonal A (stability/orthogonality scenarios).
 * :class:`SparseOperator`   — generic sparse A in sorted-COO layout.
 * :class:`KKTOperator`      — structure-aware ``[[D, Eᵀ], [E, 0]]`` operator.
@@ -20,12 +20,19 @@ Implementations:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-from two_pass_lanczos_tpu.ops.spmv import SortedCOO, coo_spmv, kkt_matvec
+from two_pass_lanczos_tpu.ops.spmv import (
+    SortedCOO,
+    coo_spmv,
+    incidence_sums,
+    kkt_matvec,
+)
+
 
 __all__ = [
     "LinearOperator",
@@ -33,11 +40,16 @@ __all__ = [
     "DiagonalOperator",
     "SparseOperator",
     "KKTOperator",
-    "PallasKKTOperator",
     "make_kkt_operator",
     "CallableOperator",
     "as_operator",
 ]
+
+
+def _is_concrete(a) -> bool:
+    """True for host arrays and committed device arrays, False for tracers."""
+    return isinstance(a, np.ndarray) or (
+        isinstance(a, jax.Array) and not isinstance(a, jax.core.Tracer))
 
 
 class LinearOperator:
@@ -55,7 +67,7 @@ class LinearOperator:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class DenseOperator(LinearOperator):
-    """Dense (symmetric/Hermitian) operator; matvec runs on the MXU."""
+    """Dense (symmetric/Hermitian) operator; the matvec is a matmul."""
 
     a: jax.Array
 
@@ -141,20 +153,42 @@ class KKTOperator(LinearOperator):
     and the arc endpoint index arrays of the incidence matrix E. Matches the
     block layout assembled by the reference loader
     (``src/utils/data_loader.rs:211-258``): arc block first, node block after.
+
+    ``tails`` and ``heads`` are the fixed plans that sum the node block
+    (``ops.spmv.incidence_sums``). They are built on the host when the
+    operator is created from concrete endpoint arrays, which makes every
+    matvec bitwise reproducible and so keeps two-pass replay exact on the
+    GPU. An operator created inside ``jit`` from traced endpoints has none
+    and uses a scatter-add instead.
     """
 
     d: jax.Array  # (num_arcs,) quadratic costs
     arc_u: jax.Array  # (num_arcs,) int32 tail nodes (E[u,j] = +1)
     arc_v: jax.Array  # (num_arcs,) int32 head nodes (E[v,j] = -1)
     num_nodes: int
+    tails: Optional[tuple] = None
+    heads: Optional[tuple] = None
+
+    def __post_init__(self):
+        if self.tails is None and _is_concrete(self.arc_u) and _is_concrete(self.arc_v):
+            object.__setattr__(self, "tails", incidence_sums(
+                np.asarray(self.arc_u), self.num_nodes))
+            object.__setattr__(self, "heads", incidence_sums(
+                np.asarray(self.arc_v), self.num_nodes))
 
     def tree_flatten(self):
-        return (self.d, self.arc_u, self.arc_v), (self.num_nodes,)
+        return ((self.d, self.arc_u, self.arc_v, self.tails, self.heads),
+                (self.num_nodes,))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        d, arc_u, arc_v = children
-        return cls(d=d, arc_u=arc_u, arc_v=arc_v, num_nodes=aux[0])
+        d, arc_u, arc_v, tails, heads = children
+        obj = object.__new__(cls)  # skip __post_init__: leaves may be tracers
+        for name, val in (("d", d), ("arc_u", arc_u), ("arc_v", arc_v),
+                          ("num_nodes", aux[0]), ("tails", tails),
+                          ("heads", heads)):
+            object.__setattr__(obj, name, val)
+        return obj
 
     @property
     def num_arcs(self):
@@ -175,102 +209,20 @@ class KKTOperator(LinearOperator):
         return 5 * self.d.shape[0]
 
     def matvec(self, x):
-        return kkt_matvec(self.d, self.arc_u, self.arc_v, self.num_nodes, x)
+        return kkt_matvec(self.d, self.arc_u, self.arc_v, self.num_nodes, x,
+                          tails=self.tails, heads=self.heads)
 
 
-@jax.tree_util.register_pytree_node_class
-@dataclasses.dataclass(frozen=True)
-class PallasKKTOperator(LinearOperator):
-    """KKT operator whose matvec is the fused Pallas TPU kernel.
-
-    Same mathematical object as :class:`KKTOperator` but with arrays
-    pre-padded for the kernel's static block geometry (see
-    ``ops/spmv_pallas.py``). Use :func:`make_kkt_operator` with
-    ``backend='auto'`` to pick this on TPU and the XLA path elsewhere.
-    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU
-    correctness testing).
-    """
-
-    d_pad: jax.Array
-    u_pad: jax.Array
-    v_pad: jax.Array
-    num_arcs: int
-    num_nodes: int
-    interpret: bool = False
-
-    def tree_flatten(self):
-        return (self.d_pad, self.u_pad, self.v_pad), (
-            self.num_arcs,
-            self.num_nodes,
-            self.interpret,
-        )
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        d_pad, u_pad, v_pad = children
-        return cls(d_pad=d_pad, u_pad=u_pad, v_pad=v_pad, num_arcs=aux[0],
-                   num_nodes=aux[1], interpret=aux[2])
-
-    @classmethod
-    def build(cls, quad_costs, arc_u, arc_v, num_nodes, dtype=jnp.float32,
-              interpret: bool = False):
-        from two_pass_lanczos_tpu.ops.spmv_pallas import pad_kkt_for_pallas
-
-        import numpy as np
-
-        d, u, v, _, _ = pad_kkt_for_pallas(
-            np.asarray(quad_costs), np.asarray(arc_u), np.asarray(arc_v),
-            int(num_nodes), dtype=np.dtype(dtype),
-        )
-        return cls(
-            d_pad=jnp.asarray(d), u_pad=jnp.asarray(u), v_pad=jnp.asarray(v),
-            num_arcs=len(np.asarray(quad_costs)), num_nodes=int(num_nodes),
-            interpret=interpret,
-        )
-
-    @property
-    def shape(self):
-        n = self.num_arcs + self.num_nodes
-        return (n, n)
-
-    @property
-    def dtype(self):
-        return self.d_pad.dtype
-
-    @property
-    def nnz(self):
-        return 5 * self.num_arcs
-
-    def matvec(self, x):
-        from two_pass_lanczos_tpu.ops.spmv_pallas import kkt_matvec_pallas
-
-        return kkt_matvec_pallas(
-            self.d_pad, self.u_pad, self.v_pad, self.num_arcs, self.num_nodes,
-            x, interpret=self.interpret,
-        )
-
-
-def make_kkt_operator(quad_costs, arc_u, arc_v, num_nodes, dtype=None,
-                      backend: str = "auto") -> LinearOperator:
-    """KKT operator factory: ``backend`` ∈ {'auto', 'xla', 'pallas'}.
-
-    'auto' selects the Pallas kernel on TPU (f32) and the XLA gather/scatter
-    path elsewhere (where XLA's lowering is fine and f64 is available).
-    """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        return PallasKKTOperator.build(
-            quad_costs, arc_u, arc_v, num_nodes, dtype=dtype or jnp.float32
-        )
-    if backend == "xla":
-        return KKTOperator(
-            d=jnp.asarray(quad_costs, dtype=dtype),
-            arc_u=jnp.asarray(arc_u, dtype=jnp.int32),
-            arc_v=jnp.asarray(arc_v, dtype=jnp.int32),
-            num_nodes=int(num_nodes),
-        )
-    raise ValueError(f"unknown backend {backend!r}")
+def make_kkt_operator(quad_costs, arc_u, arc_v, num_nodes,
+                      dtype=None) -> "KKTOperator":
+    """KKT operator from host arrays: costs cast to ``dtype``, endpoints to
+    int32, and the node block's fixed summation plans built once here."""
+    return KKTOperator(
+        d=jnp.asarray(quad_costs, dtype=dtype),
+        arc_u=jnp.asarray(arc_u, dtype=jnp.int32),
+        arc_v=jnp.asarray(arc_v, dtype=jnp.int32),
+        num_nodes=int(num_nodes),
+    )
 
 
 @jax.tree_util.register_pytree_node_class

@@ -1,10 +1,13 @@
-"""Compute kernels: SpMV (XLA and Pallas), fused Lanczos, tridiagonal utils."""
+"""Compute kernels: deterministic SpMV and tridiagonal utilities."""
 
-from two_pass_lanczos_tpu.ops.kkt_fused import FusedKKTSolver, SortedKKTLayout
 from two_pass_lanczos_tpu.ops.spmv import (
+    RowSums,
+    build_row_sums,
     coo_spmv,
     csr_from_triplets,
+    incidence_sums,
     kkt_matvec,
+    row_sums,
     SortedCOO,
 )
 from two_pass_lanczos_tpu.ops.tridiag import (
@@ -14,11 +17,13 @@ from two_pass_lanczos_tpu.ops.tridiag import (
 )
 
 __all__ = [
-    "FusedKKTSolver",
-    "SortedKKTLayout",
+    "RowSums",
+    "build_row_sums",
     "coo_spmv",
     "csr_from_triplets",
+    "incidence_sums",
     "kkt_matvec",
+    "row_sums",
     "SortedCOO",
     "assemble_tridiagonal",
     "eigh_tridiagonal",

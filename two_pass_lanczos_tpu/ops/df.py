@@ -1,7 +1,7 @@
 """Double-float (two-float) arithmetic: near-f64 precision from f32 hardware.
 
-SURVEY §7 hard part 5: native f64 is unavailable/emulated on TPU, so the
-high-precision TPU path represents every value as an unevaluated sum
+SURVEY §7 hard part 5: where native f64 is unavailable or emulated, the
+high-precision path represents every value as an unevaluated sum
 ``hi + lo`` of two f32 (a "double-float", ~49-bit effective mantissa vs
 f64's 53) and computes with error-free transformations:
 
@@ -13,14 +13,13 @@ f64's 53) and computes with error-free transformations:
 * ``df_*``      — double-float add/mul/div/sqrt built on those (Dekker 1971,
   Bailey's ddfun conventions).
 
-All operations are elementwise VPU code — branch-free, fully jittable,
+All operations are elementwise code — branch-free, fully jittable,
 shardable under ``shard_map`` — and are safe under XLA because XLA does not
 reassociate floating-point arithmetic (the transformations depend on exact
 IEEE f32 rounding of each step).
 
-Used by :mod:`two_pass_lanczos_tpu.algorithms.df` (compensated Lanczos pass
-on TPU, validated against the CPU f64 oracle) and by the compensated
-reduction option of the fused kernels.
+Used by :mod:`two_pass_lanczos_tpu.algorithms.df` (compensated Lanczos pass,
+validated against the CPU f64 oracle).
 
 Representation: a pair ``(hi, lo)`` of equal-shape f32 arrays with
 ``|lo| <= ulp(hi)/2`` (normalized). Matrix data originating in f64 is split

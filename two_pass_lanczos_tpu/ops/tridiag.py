@@ -17,8 +17,10 @@ tiny (k ≤ ~1000) relative to the device, so we use dense, jittable kernels:
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax.lax import linalg as lax_linalg
 
-__all__ = ["assemble_tridiagonal", "tridiagonal_solve_e1", "eigh_tridiagonal"]
+__all__ = ["assemble_tridiagonal", "tridiagonal_solve_e1", "eigh_tridiagonal",
+           "eigh_qr"]
 
 
 def assemble_tridiagonal(alphas, betas):
@@ -51,5 +53,13 @@ def eigh_tridiagonal(alphas, betas):
 
     Returns ``(eigenvalues, eigenvectors)`` like ``jnp.linalg.eigh``.
     """
-    t = assemble_tridiagonal(alphas, betas)
-    return jnp.linalg.eigh(t)
+    return eigh_qr(assemble_tridiagonal(alphas, betas))
+
+
+def eigh_qr(t):
+    """``(eigenvalues, eigenvectors)`` of a symmetric matrix by the QR
+    algorithm (``syevd``), on every backend. For matrices up to 32×32 the
+    GPU default is Jacobi, whose f32 ``exp(T)e₁`` read 1e-4 from the f64
+    value on an H100 where the CPU's ``syevd`` read 6e-6 (k=30)."""
+    vecs, vals = lax_linalg.eigh(t, implementation=lax_linalg.EighImplementation.QR)
+    return vals, vecs

@@ -1,4 +1,4 @@
-"""Distribution over TPU meshes: partitioning, sharded operators, collectives.
+"""Distribution over device meshes: partitioning, sharded operators, collectives.
 
 The reference is entirely sequential (every faer call passes ``Par::Seq`` —
 SURVEY §2 checklist); this package *adds* the distributed dimension specified
@@ -8,8 +8,6 @@ reductions as cross-device ``psum``s, and the remote vector segments obtained
 by all-gather inside the jitted scan.
 """
 
-from two_pass_lanczos_tpu.parallel.fused_sharded import ShardedFusedKKTSolver
-from two_pass_lanczos_tpu.parallel.fused_sharded_df import DFShardedFusedKKTSolver
 from two_pass_lanczos_tpu.parallel.mesh import make_mesh, initialize_distributed
 from two_pass_lanczos_tpu.parallel.partition import snake_partition, RowPartition
 from two_pass_lanczos_tpu.parallel.sharded import ShardedSparseOperator
@@ -20,6 +18,4 @@ __all__ = [
     "snake_partition",
     "RowPartition",
     "ShardedSparseOperator",
-    "ShardedFusedKKTSolver",
-    "DFShardedFusedKKTSolver",
 ]

@@ -1,10 +1,10 @@
 """Device mesh construction and multi-host initialization.
 
 The solver's parallelism is a 1-D row partition, so the canonical mesh is
-``Mesh(devices, ("rows",))`` over every local/global device. On a pod slice
-the same code runs unchanged after :func:`initialize_distributed` — XLA
-routes the ``psum``/``all_gather`` collectives over ICI within a slice and
-DCN across slices.
+``Mesh(devices, ("rows",))`` over every local/global device: the mesh
+follows the algorithm, not the interconnect (on one host of GPUs every card
+reaches every other at the same rate). Across processes the same code runs
+unchanged after :func:`initialize_distributed`.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def initialize_distributed(
     """Initialize ``jax.distributed`` for multi-host runs.
 
     Arguments default to the standard env vars (``JAX_COORDINATOR_ADDRESS``,
-    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) or TPU-pod auto-detection.
+    ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``); nothing is auto-detected.
     Returns True if multi-process mode was initialized, False when running
     single-process (no-op).
     """
@@ -48,10 +48,7 @@ def initialize_distributed(
     num_processes = num_processes or _int_env("JAX_NUM_PROCESSES")
     process_id = process_id if process_id is not None else _int_env("JAX_PROCESS_ID")
     if coordinator_address is None and num_processes is None:
-        # On Cloud TPU pods jax.distributed.initialize() autodetects; calling
-        # it single-process is a no-op environment-wise but raises without a
-        # TPU runtime, so guard.
-        return False
+        return False  # single process: nothing to join
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from two_pass_lanczos_tpu.ops.spmv import gather_entries, stacked_row_sums
+
 __all__ = ["RowPartition", "snake_partition", "build_local_blocks_split"]
 
 
@@ -76,8 +78,7 @@ def snake_partition(nnz_per_row: np.ndarray, ndev: int) -> RowPartition:
     )
 
 
-def build_local_blocks_split(rows, cols, vals, part: RowPartition,
-                             pad_multiple: int = 128):
+def build_local_blocks_split(rows, cols, vals, part: RowPartition):
     """Per-device local blocks split into OWNED-column and REMOTE-column
     parts (SURVEY §7 stage 5: halo exchange *overlapped with* the
     diagonal-block SpMV).
@@ -87,16 +88,13 @@ def build_local_blocks_split(rows, cols, vals, part: RowPartition,
     latency-hiding scheduler can run the collective concurrently with it,
     and the remote part applies once the gathered vector lands.
 
-    Returns two triples of ``(ndev, ·)`` stacked arrays:
+    Returns two ``(cols, vals, plan)`` triples, each stacked on a leading
+    device axis: the entries laid out as the level-0 chunks of a
+    fixed-order row-sum plan (``ops.spmv.stacked_row_sums``), so every
+    local product is bitwise reproducible.
 
-    * owned: ``(lr, lc_local, lv)`` with ``lc_local`` indexing the *local*
-      shard (0..rows_per-1);
-    * remote: ``(lr, lc_global, lv)`` with ``lc_global`` indexing the
-      all-gathered vector.
-
-    Both keep local rows ascending (the scatter-add in the sharded matvec
-    promises ``indices_are_sorted=True``) and pad with the last local row /
-    col 0 / val 0.
+    * owned: ``cols`` index the *local* shard (0..rows_per-1);
+    * remote: ``cols`` index the all-gathered vector.
     """
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
@@ -113,21 +111,14 @@ def build_local_blocks_split(rows, cols, vals, part: RowPartition,
 
     def pack(mask, local_cols: bool):
         d_m, lrow_m, pos_m, val_m = dev[mask], lrow[mask], pos_c[mask], vals[mask]
-        counts = np.bincount(d_m, minlength=part.ndev)
-        mx = int(counts.max()) if counts.size else 0
-        mx = max(((mx + pad_multiple - 1) // pad_multiple) * pad_multiple,
-                 pad_multiple)
-        lr = np.full((part.ndev, mx), part.rows_per - 1, dtype=np.int32)
-        lc = np.zeros((part.ndev, mx), dtype=np.int32)
-        lv = np.zeros((part.ndev, mx), dtype=vals.dtype)
-        starts = np.concatenate([[0], np.cumsum(counts)])
         cvals = (pos_m - d_m * part.rows_per) if local_cols else pos_m
-        for d in range(part.ndev):
-            s, e = starts[d], starts[d + 1]
-            c = e - s
-            lr[d, :c] = lrow_m[s:e]
-            lc[d, :c] = cvals[s:e]
-            lv[d, :c] = val_m[s:e]
-        return lr, lc, lv
+        starts = np.searchsorted(d_m, np.arange(part.ndev + 1))
+        per_dev = [slice(starts[d], starts[d + 1]) for d in range(part.ndev)]
+        plan, level0 = stacked_row_sums(
+            [np.bincount(lrow_m[s], minlength=part.rows_per) for s in per_dev])
+        lc, lv = zip(*(gather_entries(pos, s.stop - s.start, cvals[s], val_m[s])
+                       for pos, s in zip(level0, per_dev)))
+        return (np.stack(lc).astype(np.int32), np.stack(lv).astype(vals.dtype),
+                plan)
 
     return pack(owned, True), pack(~owned, False)

@@ -5,8 +5,9 @@ n-vector are sharded over a 1-D mesh axis; each Lanczos step inside the
 jitted ``lax.scan`` does
 
 1. ``all_gather`` of the current Krylov vector over the mesh axis (the
-   remote-segment exchange; rides ICI within a slice), **overlapped with**
-2. the OWNED-column part of the local row-block SpMV — the local triplets
+   remote-segment exchange), **overlapped with**
+2. the OWNED-column part of the local row-block SpMV (fixed-order row
+   sums, so every step is bitwise reproducible) — the local triplets
    are split host-side into owned-column (reads only this device's shard,
    data-independent of the collective, so XLA's latency-hiding scheduler
    runs them concurrently) and remote-column parts; the remote part applies
@@ -60,35 +61,31 @@ from two_pass_lanczos_tpu.parallel.partition import (
     build_local_blocks_split,
     snake_partition,
 )
-from two_pass_lanczos_tpu.ops.spmv import SortedCOO
+from two_pass_lanczos_tpu.ops.spmv import SortedCOO, row_sums
 
 __all__ = ["ShardedSparseOperator"]
 
 
-def _local_matvec(blocks, x_local, axis, rows_per):
+def _local_matvec(blocks, x_local, axis):
     """y_local = (local row block of A) @ x, with x sharded over ``axis``.
 
-    ``blocks = (lr_o, lc_o, lv_o, lr_r, lc_r, lv_r)`` — owned-column part
-    (local column ids) and remote-column part (gathered-vector column ids).
-    The owned scatter-add depends only on ``x_local``, NOT on the
+    ``blocks = ((cols, vals, plan) owned, (cols, vals, plan) remote)`` —
+    owned-column part (local column ids) and remote-column part
+    (gathered-vector column ids), each reduced by its fixed row-sum plan.
+    The owned product depends only on ``x_local``, NOT on the
     ``all_gather`` result: the collective and the diagonal-block SpMV are
     data-independent, which is what lets the compiler overlap them
     (asserted structurally by ``tests/test_collectives.py``)."""
-    lr_o, lc_o, lv_o, lr_r, lc_r, lv_r = blocks
+    (c_o, v_o, plan_o), (c_r, v_r, plan_r) = blocks
     x_full = lax.all_gather(x_local, axis, tiled=True)
-    y = jnp.zeros((rows_per,), dtype=x_local.dtype)
-    owned = lv_o * x_local.at[lc_o].get(mode="promise_in_bounds")
-    y = y.at[lr_o].add(
-        owned.astype(x_local.dtype),
-        mode="promise_in_bounds",
-        indices_are_sorted=True,
-    )
-    remote = lv_r * x_full.at[lc_r].get(mode="promise_in_bounds")
-    return y.at[lr_r].add(
-        remote.astype(x_local.dtype),
-        mode="promise_in_bounds",
-        indices_are_sorted=True,
-    )
+    owned = row_sums(plan_o, v_o * x_local.at[c_o].get(mode="promise_in_bounds"))
+    remote = row_sums(plan_r, v_r * x_full.at[c_r].get(mode="promise_in_bounds"))
+    return owned + remote
+
+
+def _device_blocks(blocks):
+    """Strip the sharded leading device axis from every block array."""
+    return jax.tree.map(lambda a: a[0], blocks)
 
 
 class ShardedSparseOperator:
@@ -124,9 +121,8 @@ class ShardedSparseOperator:
         self.part: RowPartition = snake_partition(nnz_per_row, ndev)
         owned, remote = build_local_blocks_split(rows, cols, vals, self.part)
 
-        blk_sharding = NamedSharding(mesh, P(axis, None))
-        self.local_blocks = tuple(
-            jax.device_put(a, blk_sharding) for a in owned + remote)
+        blk_sharding = NamedSharding(mesh, P(axis))
+        self.local_blocks = jax.device_put((owned, remote), blk_sharding)
         self.vec_sharding = NamedSharding(mesh, P(axis))
         self._solve_cache = {}
 
@@ -182,11 +178,11 @@ class ShardedSparseOperator:
 
     # ------------------------------------------------------------------
     def _build_solve(self, k: int, f, method: str, reorth: bool = False):
-        axis, rows_per = self.axis, self.part.rows_per
+        axis = self.axis
 
         def run(blocks, b_local):
-            blocks = tuple(a[0] for a in blocks)  # strip sharded leading dim
-            matvec = lambda x: _local_matvec(blocks, x, axis, rows_per)
+            blocks = _device_blocks(blocks)
+            matvec = lambda x: _local_matvec(blocks, x, axis)
             reduce_sum = lambda s: lax.psum(s, axis)
             if reorth == "selective":
                 # ω bookkeeping is replicated scalar math; only the CGS
@@ -232,7 +228,7 @@ class ShardedSparseOperator:
         shmapped = jax.shard_map(
             run,
             mesh=self.mesh,
-            in_specs=(tuple([P(axis, None)] * 6), P(axis)),
+            in_specs=(P(axis), P(axis)),
             out_specs=(x_spec, P(), P(), P(), P()),
             check_vma=False,
         )
@@ -247,7 +243,7 @@ class ShardedSparseOperator:
     # -- chunked pass one (live early-stop callback) --------------------
 
     def _build_p1_init(self):
-        axis, rows_per = self.axis, self.part.rows_per
+        axis = self.axis
 
         def run(blocks, b_local):
             del blocks  # same signature as the chunk for symmetry
@@ -258,17 +254,17 @@ class ShardedSparseOperator:
 
         shmapped = jax.shard_map(
             run, mesh=self.mesh,
-            in_specs=(tuple([P(axis, None)] * 6), P(axis)),
+            in_specs=(P(axis), P(axis)),
             out_specs=(P(axis), P(axis), P(), P(), P(), P()),
             check_vma=False)
         return jax.jit(shmapped)
 
     def _build_p1_chunk(self, chunk: int):
-        axis, rows_per = self.axis, self.part.rows_per
+        axis = self.axis
 
         def run(blocks, vp, vc, bp, done, steps):
-            blocks = tuple(a[0] for a in blocks)
-            matvec = lambda x: _local_matvec(blocks, x, axis, rows_per)
+            blocks = _device_blocks(blocks)
+            matvec = lambda x: _local_matvec(blocks, x, axis)
             rs = lambda s: lax.psum(s, axis)
             step = make_pass_one_step(matvec, vc.dtype, emit_basis=False,
                                       reduce_sum=rs)
@@ -279,7 +275,7 @@ class ShardedSparseOperator:
 
         shmapped = jax.shard_map(
             run, mesh=self.mesh,
-            in_specs=(tuple([P(axis, None)] * 6),
+            in_specs=(P(axis),
                       P(axis), P(axis), P(), P(), P()),
             out_specs=(P(axis), P(axis), P(), P(), P(), P(), P()),
             check_vma=False)
@@ -288,11 +284,11 @@ class ShardedSparseOperator:
     def _build_p2_finish(self, k2: int, f):
         """Pass two compiled at scan length ``k2`` — an early stop at step s
         pays exactly s reconstruction matvecs per device."""
-        axis, rows_per = self.axis, self.part.rows_per
+        axis = self.axis
 
         def run(blocks, b_local, alphas, betas, steps, b_norm):
-            blocks = tuple(a[0] for a in blocks)
-            matvec = lambda x: _local_matvec(blocks, x, axis, rows_per)
+            blocks = _device_blocks(blocks)
+            matvec = lambda x: _local_matvec(blocks, x, axis)
             decomp = LanczosDecomposition(
                 alphas=alphas, betas=betas, steps_taken=steps, b_norm=b_norm)
             y = _stacked_y_local(decomp, f)
@@ -303,7 +299,7 @@ class ShardedSparseOperator:
 
         shmapped = jax.shard_map(
             run, mesh=self.mesh,
-            in_specs=(tuple([P(axis, None)] * 6), P(axis),
+            in_specs=(P(axis), P(axis),
                       P(), P(), P(), P()),
             out_specs=P(None, axis) if isinstance(f, tuple) else P(axis),
             check_vma=False)
@@ -314,8 +310,7 @@ class ShardedSparseOperator:
         reference's in-loop ``LanczosCallback`` break-out
         (``src/algorithms/mod.rs:69-86``) on the generic row partition.
 
-        Same contract as ``ShardedFusedKKTSolver.pass_one_chunked``: between
-        ``chunk``-step compiled launches the replicated (α, β, steps) are
+        Between ``chunk``-step compiled launches the replicated (α, β, steps) are
         read back and ``callback(s, None, (alphas[:s], betas[:s-1]))`` is
         replayed per iteration; a stop at step s costs at most
         ceil(s/chunk)·chunk matvecs per device. Returns
@@ -473,7 +468,7 @@ class ShardedSparseOperator:
         n = self.part.n_orig
         ncv = validate_eigsh_params(n, nev, ncv, which, maxiter)
         ell = eigsh_thickness(nev, ncv)
-        axis, rows_per = self.axis, self.part.rows_per
+        axis = self.axis
         rdt = np.dtype(self.dtype)
         if key is None:
             key = jax.random.key(0)
@@ -498,8 +493,8 @@ class ShardedSparseOperator:
                 return v.at[0].set(b_loc / nrm.astype(b_loc.dtype))
 
             def cycle(blocks, v, h, start, k_in, mask_loc):
-                blocks = tuple(a[0] for a in blocks)
-                matvec = lambda x: _local_matvec(blocks, x, axis, rows_per)
+                blocks = _device_blocks(blocks)
+                matvec = lambda x: _local_matvec(blocks, x, axis)
                 rs = lambda s: lax.psum(s, axis)
                 fold = lambda kk: jax.random.fold_in(
                     kk, lax.axis_index(axis))
@@ -514,7 +509,7 @@ class ShardedSparseOperator:
                     check_vma=False)),
                 jax.jit(jax.shard_map(
                     cycle, mesh=self.mesh,
-                    in_specs=(tuple([P(axis, None)] * 6), P(None, axis),
+                    in_specs=(P(axis), P(None, axis),
                               P(), P(), P(), P(axis)),
                     out_specs=(P(None, axis), P(), P(), P(), P(), P()),
                     check_vma=False)),
@@ -622,11 +617,11 @@ class ShardedSparseOperator:
 
         ck = ("slq", k, num_probes)
         if ck not in self._solve_cache:
-            axis, rows_per = self.axis, self.part.rows_per
+            axis = self.axis
 
             def run(blocks, probes_local):
-                blocks = tuple(a[0] for a in blocks)
-                matvec = lambda x: _local_matvec(blocks, x, axis, rows_per)
+                blocks = _device_blocks(blocks)
+                matvec = lambda x: _local_matvec(blocks, x, axis)
                 rs = lambda s: lax.psum(s, axis)
 
                 def solo(b_loc):
@@ -639,7 +634,7 @@ class ShardedSparseOperator:
 
             self._solve_cache[ck] = jax.jit(jax.shard_map(
                 run, mesh=self.mesh,
-                in_specs=(tuple([P(axis, None)] * 6), P(None, axis)),
+                in_specs=(P(axis), P(None, axis)),
                 out_specs=(P(), P(), P(), P()),
                 check_vma=False))
         alphas, betas, steps, b_norm = self._solve_cache[ck](
@@ -720,7 +715,7 @@ class ShardedSparseOperator:
 
         ck = ("block", k, p)
         if ck not in self._solve_cache:
-            axis, rows_per = self.axis, self.part.rows_per
+            axis = self.axis
             from two_pass_lanczos_tpu.algorithms.core import (
                 breakdown_tolerance,
             )
@@ -728,8 +723,8 @@ class ShardedSparseOperator:
             tol = breakdown_tolerance(rdt)
 
             def run(blocks, b_loc):
-                blocks = tuple(a[0] for a in blocks)
-                matvec = lambda x: _local_matvec(blocks, x, axis, rows_per)
+                blocks = _device_blocks(blocks)
+                matvec = lambda x: _local_matvec(blocks, x, axis)
                 block_mv = jax.vmap(matvec, in_axes=1, out_axes=1)
                 rs = lambda s: lax.psum(s, axis)
 
@@ -813,7 +808,7 @@ class ShardedSparseOperator:
 
             self._solve_cache[ck] = jax.jit(jax.shard_map(
                 run, mesh=self.mesh,
-                in_specs=(tuple([P(axis, None)] * 6), P(axis, None)),
+                in_specs=(P(axis), P(axis, None)),
                 out_specs=(P(), P(), P(), P(), P(None, axis, None)),
                 check_vma=False))
         a_b, b_b, r0, steps, basis = self._solve_cache[ck](
@@ -892,16 +887,16 @@ class ShardedSparseOperator:
 
         key = ("chebyshev", degree)
         if key not in self._solve_cache:
-            axis, rows_per = self.axis, self.part.rows_per
+            axis = self.axis
 
             def run(blocks, b_local, cs_rep, scale_rep):
-                blocks = tuple(a[0] for a in blocks)
-                matvec = lambda x: _local_matvec(blocks, x, axis, rows_per)
+                blocks = _device_blocks(blocks)
+                matvec = lambda x: _local_matvec(blocks, x, axis)
                 return chebyshev_scan(matvec, b_local, cs_rep, scale_rep)
 
             self._solve_cache[key] = jax.jit(jax.shard_map(
                 run, mesh=self.mesh,
-                in_specs=(tuple([P(axis, None)] * 6), P(axis), P(), P()),
+                in_specs=(P(axis), P(axis), P(), P()),
                 out_specs=P(axis),
                 check_vma=False))
         x_perm = self._solve_cache[key](
@@ -916,19 +911,19 @@ class ShardedSparseOperator:
         in/out. Multi-host runs must pass ``raw=True`` (the permuted sharded
         device array is returned; unpacking needs every shard
         process-addressable)."""
-        axis, rows_per = self.axis, self.part.rows_per
+        axis = self.axis
 
         if "matvec" not in self._solve_cache:  # compile once, reuse per call
 
             def run(blocks, x_local):
-                blocks = tuple(a[0] for a in blocks)
-                return _local_matvec(blocks, x_local, axis, rows_per)
+                blocks = _device_blocks(blocks)
+                return _local_matvec(blocks, x_local, axis)
 
             self._solve_cache["matvec"] = jax.jit(
                 jax.shard_map(
                     run,
                     mesh=self.mesh,
-                    in_specs=(tuple([P(axis, None)] * 6), P(axis)),
+                    in_specs=(P(axis), P(axis)),
                     out_specs=P(axis),
                     check_vma=False,
                 )

@@ -1,4 +1,4 @@
-"""Stochastic Lanczos quadrature (SLQ): tr f(A) estimation on TPU.
+"""Stochastic Lanczos quadrature (SLQ): tr f(A) estimation.
 
 The reference evaluates f(A)·b for a single b (``src/solvers.rs``); the
 identical pass-one machinery answers the other canonical matrix-function
@@ -9,11 +9,11 @@ sums) — via Hutchinson probing + Gauss quadrature (Ubaru–Chen–Saad,
     tr f(A) = E_z[ zᵀ f(A) z ]  ≈  (1/m) Σ_i ‖z_i‖²·e₁ᵀ f(T_k^{(i)}) e₁
 
 with z_i Rademacher (or Gaussian) probes and T_k^{(i)} the Lanczos
-tridiagonal of (A, z_i). This maps onto the TPU better than any other
-trace estimator:
+tridiagonal of (A, z_i). This maps onto an accelerator better than any
+other trace estimator:
 
 * the m probe recurrences are **one vmapped ``lax.scan``** — every matvec
-  becomes a batched matvec (a matmul on the MXU for dense A; a shared-A
+  becomes a batched matvec (a matmul for dense A; a shared-A
   batched SpMV for sparse A), so the m probes cost far less than m solo runs;
 * the m quadratures are **one batched ``eigh``** of (m, k, k) tridiagonals —
   tiny device-side dense eigensolves, no host round-trip per probe.
@@ -23,8 +23,7 @@ Everything here reuses the scan from :mod:`algorithms.core` unchanged
 breakdown handling, zero-probe handling and coefficient semantics are the
 ones the rest of the library pins. Works with any pytree
 :class:`LinearOperator` whose ``matvec`` is vmappable (every XLA-path
-operator in :mod:`operators`; the fused Pallas solvers are single-vector
-by design — stream probes through them one at a time instead).
+operator in :mod:`operators`).
 """
 
 from __future__ import annotations
@@ -262,8 +261,8 @@ def slq_trace_adaptive(
 
 def adaptive_probe_loop(run_batch, key, *, batch: int, max_probes: int,
                         target_rel_stderr: float) -> SLQResult:
-    """The adaptive Hutchinson driver shared by every SLQ tier (XLA,
-    fused VMEM-resident, arc-sharded fused): call ``run_batch(sub_key,
+    """The adaptive Hutchinson driver shared by every SLQ tier (single
+    device, row-sharded): call ``run_batch(sub_key,
     take)`` → per-probe samples, accumulate until the sample standard
     error certifies ``target_rel_stderr`` (two-batch minimum — one
     batch's variance estimate is too noisy) or ``max_probes`` is hit."""
@@ -298,8 +297,8 @@ def adaptive_probe_loop(run_batch, key, *, batch: int, max_probes: int,
 def dos_from_decomposition(decomp, grid, sigma):
     """Smoothed DOS on ``grid`` from a batched (per-probe) decomposition:
     average of the Gaussian-KDE'd k-node spectral measures — the
-    Lin–Saad–Yang estimator's second half, shared by the XLA and fused
-    tiers (the first half is any batched pass one over unit probes)."""
+    Lin–Saad–Yang estimator's second half, shared by the single-device and
+    sharded tiers (the first half is any batched pass one over unit probes)."""
     theta, w = batched_ritz_weights(decomp)
     m = theta.shape[0]
     g = jnp.exp(-0.5 * ((grid[None, None, :] - theta[:, :, None]) / sigma) ** 2)

@@ -14,7 +14,7 @@ Two API flavors:
   host boundary between them.
 * :func:`solve_fAb` — a single fully-jittable pipeline for the built-in
   matrix functions, with fixed shapes end-to-end (breakdown handled by
-  block-diagonal padding). This is the production/TPU fast path and the form
+  block-diagonal padding). This is the production fast path and the form
   that distributes over a device mesh unchanged.
 """
 
@@ -163,7 +163,7 @@ def lanczos(
     reorthogonalizes each new vector against the stored basis
     (``reorth_sweeps`` CGS sweeps, default 2 = CGS2) — the fix for the
     large-k forward instability the plain recurrence is documented to
-    suffer on indefinite spectra, at O(k²n) extra MXU work
+    suffer on indefinite spectra, at O(k²n) extra matmul work
     (``algorithms/reorth.py``). ``reorth="selective"`` monitors the Simon
     ω-recurrence and sweeps only when semi-orthogonality (√ε) is about to
     be lost — plain-recurrence cost on benign spectra (a never-triggered
@@ -206,9 +206,9 @@ def lanczos(
 
 @jax.jit
 def _gemv_reconstruct(v_k, y):
-    # x = V_kᵀ · y  with V stored (k, n): one MXU GEMV (or GEMM for a
+    # x = V_kᵀ · y  with V stored (k, n): one GEMV (or GEMM for a
     # (nf, k) multi-function y stack — nf solutions from one basis).
-    # HIGHEST: TPU DEFAULT dot precision is bf16-class and would inject
+    # HIGHEST: a GPU runs a DEFAULT f32 product in TF32, which would inject
     # ~1e-3 relative error into x at the very last step; the contraction
     # is one matvec-equivalent of work, so full precision costs nothing.
     return jnp.einsum("kn,...k->...n", v_k, y,
@@ -320,7 +320,7 @@ def solve_fAb(
     ``reorth=True``/``"full"`` (one-pass only, beyond the reference) runs
     the fully reorthogonalized recurrence of ``algorithms/reorth.py`` —
     accurate at large k on the spectra where the plain recurrence's
-    orthogonality collapses, for O(k²n) extra MXU work;
+    orthogonality collapses, for O(k²n) extra matmul work;
     ``reorth="selective"`` sweeps only when the ω-recurrence predicts
     semi-orthogonality loss (plain cost on benign spectra).
     """

@@ -22,7 +22,7 @@ f64; these are analysis utilities, not the device hot path):
   enclosure that tightens with k.
 
 All functions accept the decomposition from ANY pass-one implementation in
-this package (XLA scan, fused Pallas, chunked, sharded, df — they share the
+this package (XLA scan, chunked, sharded, df — they share the
 pytree contract) and operate on the valid ``steps_taken`` prefix.
 """
 

@@ -1,15 +1,11 @@
 """Collective-traffic audit: what a compiled distributed solve moves per step.
 
-VERDICT r1 item 5: real N≥2 hardware is unreachable in this environment, so
-the quantitative evidence for the distributed design is extracted from the
+The collective traffic of the distributed design is read from the
 **compiled HLO** on a virtual CPU mesh — the collective instructions XLA
-actually emits (op kind, tensor shape, byte size), which are mesh-topology
-facts independent of the executing backend. Collectives inside a `while`
-body execute once per Lanczos step, so static instances map 1:1 to per-step
-traffic.
-
-Reconciles the PERF.md model ("~5 KB psum vs ~2 MB all-gather per step" at
-500k arcs): see `scripts/collective_audit.py` for the recorded table and
+actually emits (op kind, tensor shape, byte size), which are facts about
+the mesh, independent of the executing backend. Collectives inside a
+`while` body execute once per Lanczos step, so static instances map 1:1 to
+per-step traffic. See `scripts/collective_audit.py` for the table and
 `tests/test_collectives.py` for the pinned invariants.
 """
 
@@ -19,8 +15,7 @@ import dataclasses
 import re
 from typing import List
 
-__all__ = ["CollectiveOp", "collectives_in_hlo", "collectives_in_stablehlo",
-           "collective_bytes"]
+__all__ = ["CollectiveOp", "collectives_in_hlo", "collective_bytes"]
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter",
                 "collective-permute", "all-to-all")
@@ -65,54 +60,6 @@ def collectives_in_hlo(hlo_text: str) -> List[CollectiveOp]:
                 found[key] = found.get(key, 0) + 1
     return [CollectiveOp(kind=k, dtype=d, shape=s, count=c)
             for (k, d, s), c in sorted(found.items())]
-
-
-_STABLEHLO_COLLECTIVES = ("all_gather", "all_reduce", "reduce_scatter",
-                          "collective_permute", "all_to_all")
-_STABLEHLO_DTYPES = {"f32": "f32", "f64": "f64", "bf16": "bf16", "f16": "f16",
-                     "i32": "s32", "i64": "s64", "i16": "s16", "i8": "s8",
-                     "i1": "pred", "ui32": "u32"}
-_STABLEHLO_RE = re.compile(
-    r'"stablehlo\.(\w+)"[^\n]*?->\s*tensor<([0-9x]*)(\w+)>')
-_GROUPS_RE = re.compile(r"replica_groups\s*=\s*dense<\[\[([^\]]*)\]")
-
-
-def collectives_in_stablehlo(stablehlo_text: str) -> List[CollectiveOp]:
-    """Parse collective ops out of LOWERED (pre-compile) StableHLO text —
-    `jitted.lower(...).as_text()`. Lowering skips the XLA backend compile
-    entirely, which is what makes an 8-device audit of the interpret-mode
-    double-float sharded kernels tractable (their XLA-CPU *compile*
-    explodes superlinearly past 4 devices — `__graft_entry__.py`).
-
-    The `shape` reported is the op's RESULT tensor shape (post-gather:
-    leading axis = device count for an all_gather over the full group);
-    counts aggregate identical (kind, dtype, shape) instances. Collectives
-    inside a `stablehlo.while` body appear once per static call site, so
-    counts map to per-step traffic exactly like `collectives_in_hlo`.
-    """
-    found = {}
-    for line in stablehlo_text.splitlines():
-        names = [c for c in _STABLEHLO_COLLECTIVES
-                 if f'"stablehlo.{c}"' in line]
-        if not names:
-            continue
-        m = _STABLEHLO_RE.search(line)
-        if m and m.group(1) in _STABLEHLO_COLLECTIVES:
-            kind = m.group(1).replace("_", "-")
-            shape = tuple(int(x) for x in m.group(2).split("x") if x)
-            dtype = _STABLEHLO_DTYPES.get(m.group(3), m.group(3))
-        else:
-            # region-carrying form (e.g. all_reduce): result type lands on
-            # a later line — still record the op so "none of kind X"
-            # assertions cannot silently pass on a parse miss
-            kind = names[0].replace("_", "-")
-            shape, dtype = (), "unknown"
-        gm = _GROUPS_RE.search(line)
-        group = len(gm.group(1).split(",")) if gm else 0
-        key = (kind, dtype, shape, group)
-        found[key] = found.get(key, 0) + 1
-    return [CollectiveOp(kind=k, dtype=d, shape=s, count=c)
-            for (k, d, s, _g), c in sorted(found.items())]
 
 
 def collective_bytes(ops: List[CollectiveOp], kinds=None) -> int:

@@ -38,12 +38,14 @@ from __future__ import annotations
 import argparse
 import csv
 import json
-import subprocess
+import os
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
+
+from two_pass_lanczos_tpu.observability import card_line
 
 RESULTS = Path(__file__).resolve().parent / "results"
 
@@ -69,8 +71,10 @@ ACCURACY_FLOOR = 1e-13
 #: ~3e-6 on the CPU; a product in TF32 (10-bit mantissa) would read ~1e-3.
 TOL_F32_COEFFS = 1e-5
 #: f32 against f64 ``f(T)e1`` (exp) from the same T_k: a 30x30 f32
-#: eigendecomposition; TF32 in its product would read ~1e-3.
-TOL_F32_PROJECTED = 1e-4
+#: eigendecomposition. On an H100 the QR eigensolver (``eigh_qr``) reads
+#: 7.2e-6 and the GPU's default Jacobi ``eigh`` read 9.9e-5, so the limit
+#: sits between them: a return to Jacobi (or TF32, ~1e-3) fails.
+TOL_F32_PROJECTED = 3e-5
 #: Sharded (4 cards) against one-card x in f64: the row partition sums each
 #: row and every dot product in another order (NCCL all-reduce across
 #: cards, other chunking within one), so the two agree to rounding
@@ -80,19 +84,6 @@ TOL_SHARDED = 1e-8
 
 class CheckFailed(RuntimeError):
     """A phase could not produce the quantity it checks."""
-
-
-def card_line() -> str:
-    """``name, power.limit`` of the card, as ``nvidia-smi`` reports them."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"nvidia-smi unavailable: {e}"
-    lines = out.stdout.strip().splitlines()
-    return lines[0] if lines else "nvidia-smi printed nothing"
 
 
 def _check(results: list, name: str, value: float, tol: float,
@@ -224,6 +215,21 @@ def phase_replay(arcs=500_000, k=500, seed=1):
     return out
 
 
+def _build_operator(inst):
+    """``make_kkt_operator`` in f64 and its wall time: the host-side
+    summation plans plus the copy to the device (set-up, not solve time)."""
+    import jax
+    import jax.numpy as jnp
+
+    import two_pass_lanczos_tpu as tpl
+
+    t0 = time.perf_counter()
+    op = jax.block_until_ready(tpl.make_kkt_operator(
+        inst.quad_costs, inst.arc_u, inst.arc_v, inst.num_nodes,
+        dtype=jnp.float64))
+    return op, time.perf_counter() - t0
+
+
 def phase_headline(arcs=500_000, k=500, big_arcs=5_000_000, big_k=100,
                    seed=1):
     import jax.numpy as jnp
@@ -232,8 +238,7 @@ def phase_headline(arcs=500_000, k=500, big_arcs=5_000_000, big_k=100,
 
     out = []
     inst = kkt_instance(arcs)
-    op = tpl.make_kkt_operator(inst.quad_costs, inst.arc_u, inst.arc_v,
-                               inst.num_nodes, dtype=jnp.float64)
+    op, build = _build_operator(inst)
     b = jnp.asarray(np.random.default_rng(seed).standard_normal(
         inst.num_arcs + inst.num_nodes))
     xs, secs = {}, {}
@@ -244,13 +249,13 @@ def phase_headline(arcs=500_000, k=500, big_arcs=5_000_000, big_k=100,
         xs[method] = np.asarray(solve())
         _check(out, f"{method} inv arcs={arcs} k={k} finite",
                float(np.isfinite(xs[method]).all()), 1.0,
-               ok=np.isfinite(xs[method]).all(), seconds=secs[method])
+               ok=np.isfinite(xs[method]).all(), seconds=secs[method],
+               operator_build_seconds=build)
     _check(out, f"two_pass vs one_pass arcs={arcs} k={k}",
            _rel(xs["two_pass"], xs["one_pass"]), TOL_ONE_VS_TWO_PASS)
 
     big = kkt_instance(big_arcs)
-    op_big = tpl.make_kkt_operator(big.quad_costs, big.arc_u, big.arc_v,
-                                   big.num_nodes, dtype=jnp.float64)
+    op_big, build_big = _build_operator(big)
     b_big = jnp.asarray(np.random.default_rng(seed).standard_normal(
         big.num_arcs + big.num_nodes))
 
@@ -262,7 +267,8 @@ def phase_headline(arcs=500_000, k=500, big_arcs=5_000_000, big_k=100,
     x_big = np.asarray(solve_big())
     _check(out, f"two_pass inv arcs={big_arcs} k={big_k} finite",
            float(np.isfinite(x_big).all()), 1.0,
-           ok=np.isfinite(x_big).all(), seconds=t_big)
+           ok=np.isfinite(x_big).all(), seconds=t_big,
+           operator_build_seconds=build_big)
     return out
 
 
@@ -465,6 +471,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(card, flush=True)
     print(f"compile cache: {cache}", flush=True)
+    print(f"XLA_FLAGS: {os.environ.get('XLA_FLAGS', '')}", flush=True)
     phases = (phase_four_cards,) if args.four_cards else PHASES
     if not run_phases(phases, card):
         print("chip_smoke.py: a check failed", file=sys.stderr)

@@ -15,7 +15,7 @@ import jax
 import pytest
 
 import chip_smoke
-from two_pass_lanczos_tpu.utils import compile_cache
+from two_pass_lanczos_tpu.utils import compile_cache, determinism
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -145,6 +145,33 @@ def test_compile_cache_respects_the_environment(monkeypatch, tmp_path):
     before = jax.config.jax_compilation_cache_dir
     assert compile_cache.enable_compile_cache() == str(tmp_path)
     assert jax.config.jax_compilation_cache_dir == before  # nothing set
+
+
+FLAG = determinism.FUSION_AUTOTUNER_FLAG
+
+
+@pytest.mark.parametrize("before, after, added", [
+    ("", f"--{FLAG}=false", True),
+    ("--xla_dump_to=/tmp/d", f"--xla_dump_to=/tmp/d --{FLAG}=false", True),
+    (f"--{FLAG}=true", f"--{FLAG}=true", False),
+], ids=["unset", "other_flags", "user_choice_kept"])
+def test_pin_fusion_emitters(before, after, added):
+    env = {"XLA_FLAGS": before} if before else {}
+    assert determinism.pin_fusion_emitters(env) is added
+    assert env["XLA_FLAGS"] == after
+
+
+def test_import_pins_fusion_emitters():
+    """Importing the package turns the autotuner off before any backend
+    starts."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
+    proc = subprocess.run(
+        [sys.executable, "-c", "import os, two_pass_lanczos_tpu, jax.numpy as jnp;"
+         "print(float(jnp.ones(3).sum())); print(os.environ['XLA_FLAGS'])"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["3.0", f"--{FLAG}=false"]
 
 
 @pytest.mark.parametrize("script", ["bench.py", "chip_smoke.py"])

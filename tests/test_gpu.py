@@ -68,3 +68,15 @@ def test_chunked_resume_on_card(gpu):
         np.asarray(chunked.alphas).tobytes()
     assert np.asarray(whole.betas).tobytes() == \
         np.asarray(chunked.betas).tobytes()
+
+
+def test_with_costs_under_jit_on_card(gpu):
+    """New costs passed through jit (``with_costs``) keep the fixed-order
+    node sums: two solves of the same costs give the same bits."""
+    op, b = _problem()
+    solve = jax.jit(lambda d, bb: tpl.solve_fAb(
+        op.with_costs(d), bb, k=100, f="inv", method="two_pass"))
+    d = 2.0 * op.d
+    x1, x2 = solve(d, b), solve(d, b)
+    assert np.all(np.isfinite(np.asarray(x1)))
+    assert np.asarray(x1).tobytes() == np.asarray(x2).tobytes()

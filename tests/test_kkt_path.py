@@ -134,10 +134,11 @@ def test_zero_b_on_kkt(api):
             tpl.lanczos_two_pass(op, b, 10, tpl.make_inv_solver())
 
 
-@pytest.mark.parametrize("built", ["outside", "inside"])
+@pytest.mark.parametrize("built", ["outside", "inside", "with_costs"])
 def test_nested_jit(built):
     """``solve_fAb`` nests in an outer jit, with the operator passed in
-    (its plans travel as leaves) or assembled inside from traced arrays."""
+    (its plans travel as leaves), assembled inside from traced costs and
+    concrete endpoints, or given traced costs through ``with_costs``."""
     a = _arrays()
     op, b = _op("kkt", a), _b(a)
     direct = tpl.solve_fAb(op, b, k=16, f="inv", method="two_pass")
@@ -147,12 +148,16 @@ def test_nested_jit(built):
         got = outer(op, b)
     else:
         @jax.jit
-        def outer(d, u, v, bb):
-            o = tpl.KKTOperator(d=d, arc_u=u, arc_v=v, num_nodes=a.num_nodes)
+        def outer(d, bb):
+            if built == "inside":
+                o = tpl.KKTOperator(d=d, arc_u=op.arc_u, arc_v=op.arc_v,
+                                    num_nodes=a.num_nodes)
+            else:
+                o = op.with_costs(d)
             return 2.0 * tpl.solve_fAb(o, bb, k=16, f="inv",
                                        method="two_pass")
 
-        got = outer(op.d, op.arc_u, op.arc_v, b)
+        got = outer(op.d, b)
     np.testing.assert_allclose(np.asarray(got), 2.0 * np.asarray(direct),
                                rtol=1e-9, atol=1e-12)
 

@@ -131,25 +131,39 @@ def test_matvec_bitwise_repeatable(kind):
         assert np.asarray(mv(op, x)).tobytes() == first.tobytes()
 
 
-def test_traced_kkt_operator_falls_back_to_scatter():
-    """An operator assembled inside jit (traced endpoints) has no plan and
-    takes the scatter-add path; both paths give the same product."""
+def test_traced_endpoints_are_refused():
+    """The node-block plans are built from the endpoints on the host, so an
+    operator assembled inside jit from traced endpoints is refused."""
     a = _generated(3)
-    x = jnp.asarray(np.random.default_rng(2).standard_normal(
-        a.num_arcs + a.num_nodes))
-    planned = tpl.make_kkt_operator(a.quad_costs, a.arc_u, a.arc_v,
-                                    a.num_nodes, dtype=jnp.float64)
-    assert planned.tails is not None
 
     @jax.jit
-    def traced(d, u, v, xx):
-        op = tpl.KKTOperator(d=d, arc_u=u, arc_v=v, num_nodes=a.num_nodes)
-        assert op.tails is None
-        return op.matvec(xx)
+    def traced(d, u, v):
+        return tpl.KKTOperator(d=d, arc_u=u, arc_v=v, num_nodes=a.num_nodes)
 
-    y_t = traced(planned.d, planned.arc_u, planned.arc_v, x)
-    np.testing.assert_allclose(np.asarray(y_t), np.asarray(planned.matvec(x)),
+    with pytest.raises(tpl.InputError, match="concrete arc endpoints"):
+        traced(jnp.asarray(a.quad_costs), jnp.asarray(a.arc_u),
+               jnp.asarray(a.arc_v))
+
+
+def test_with_costs_reuses_the_plans():
+    """New costs keep the endpoint plans, inside jit too, and the product
+    is bitwise that of an operator built from scratch with those costs."""
+    a = _generated(3)
+    op = _operator("kkt", a, np.float64)
+    d2 = 1.0 + np.random.default_rng(6).random(a.num_arcs)
+    x = jnp.asarray(np.random.default_rng(7).standard_normal(
+        a.num_arcs + a.num_nodes))
+    fresh = tpl.make_kkt_operator(d2, a.arc_u, a.arc_v, a.num_nodes,
+                                  dtype=jnp.float64)
+    mv = jax.jit(lambda o, v: o.matvec(v))
+    want = np.asarray(mv(fresh, x))
+    assert op.with_costs(d2).tails is op.tails
+    assert np.asarray(mv(op.with_costs(d2), x)).tobytes() == want.tobytes()
+    traced = jax.jit(lambda d, v: op.with_costs(d).matvec(v))
+    np.testing.assert_allclose(np.asarray(traced(jnp.asarray(d2), x)), want,
                                rtol=1e-13, atol=1e-13)
+    with pytest.raises(tpl.DimensionMismatchError):
+        op.with_costs(d2[:-1])
 
 
 COUNT_PATTERNS = {

@@ -29,7 +29,11 @@ Quick example (the analogue of the reference's crate doctest,
     assert jnp.linalg.norm(x1 - x2) < 1e-12 * jnp.linalg.norm(x1)
 """
 
-from two_pass_lanczos_tpu.algorithms import (
+from two_pass_lanczos_tpu.utils.determinism import pin_fusion_emitters
+
+pin_fusion_emitters()  # before any backend starts: see utils/determinism.py
+
+from two_pass_lanczos_tpu.algorithms import (  # noqa: E402
     LanczosDecomposition,
     breakdown_tolerance,
     lanczos_pass_one,

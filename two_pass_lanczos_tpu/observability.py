@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import subprocess
 from typing import Callable, Optional
 
 import numpy as np
@@ -35,6 +36,7 @@ __all__ = [
     "trace",
     "PEAK_HBM_BYTES_PER_S",
     "peak_hbm_bandwidth",
+    "card_line",
     "SoLReport",
     "kkt_spmv_sol",
 ]
@@ -120,6 +122,21 @@ def peak_hbm_bandwidth(device_kind: str) -> float:
         raise KeyError(
             f"no published memory bandwidth for device kind {device_kind!r}; "
             f"known: {sorted(PEAK_HBM_BYTES_PER_S)}") from None
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the first GPU, as ``nvidia-smi`` reports
+    them; a card below its maximum power limit runs slower under load, so
+    every timing is printed beside this line."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if lines else "nvidia-smi printed nothing"
 
 
 @dataclasses.dataclass

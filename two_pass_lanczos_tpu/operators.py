@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from two_pass_lanczos_tpu.errors import DimensionMismatchError, InputError
 from two_pass_lanczos_tpu.ops.spmv import (
     SortedCOO,
     coo_spmv,
@@ -155,11 +156,12 @@ class KKTOperator(LinearOperator):
     (``src/utils/data_loader.rs:211-258``): arc block first, node block after.
 
     ``tails`` and ``heads`` are the fixed plans that sum the node block
-    (``ops.spmv.incidence_sums``). They are built on the host when the
-    operator is created from concrete endpoint arrays, which makes every
-    matvec bitwise reproducible and so keeps two-pass replay exact on the
-    GPU. An operator created inside ``jit`` from traced endpoints has none
-    and uses a scatter-add instead.
+    (``ops.spmv.incidence_sums``), built on the host from the endpoint
+    arrays when the operator is created. They make every matvec bitwise
+    reproducible, which keeps two-pass replay exact on the GPU. So the
+    endpoints must be concrete (host or device arrays, not tracers); the
+    costs ``d`` may be traced. To change the costs without rebuilding the
+    plans — inside ``jit`` too — use :meth:`with_costs`.
     """
 
     d: jax.Array  # (num_arcs,) quadratic costs
@@ -170,11 +172,17 @@ class KKTOperator(LinearOperator):
     heads: Optional[tuple] = None
 
     def __post_init__(self):
-        if self.tails is None and _is_concrete(self.arc_u) and _is_concrete(self.arc_v):
-            object.__setattr__(self, "tails", incidence_sums(
-                np.asarray(self.arc_u), self.num_nodes))
-            object.__setattr__(self, "heads", incidence_sums(
-                np.asarray(self.arc_v), self.num_nodes))
+        if self.tails is not None and self.heads is not None:
+            return
+        if not (_is_concrete(self.arc_u) and _is_concrete(self.arc_v)):
+            raise InputError(
+                "KKTOperator needs concrete arc endpoints to plan its "
+                "node-block sums; build it outside jit (make_kkt_operator) "
+                "and pass new costs through op.with_costs(d)")
+        object.__setattr__(self, "tails", incidence_sums(
+            np.asarray(self.arc_u), self.num_nodes))
+        object.__setattr__(self, "heads", incidence_sums(
+            np.asarray(self.arc_v), self.num_nodes))
 
     def tree_flatten(self):
         return ((self.d, self.arc_u, self.arc_v, self.tails, self.heads),
@@ -189,6 +197,16 @@ class KKTOperator(LinearOperator):
                           ("heads", heads)):
             object.__setattr__(obj, name, val)
         return obj
+
+    def with_costs(self, d) -> "KKTOperator":
+        """The same network with arc costs ``d``: the endpoints and the
+        summation plans are reused, so this costs nothing on the host and
+        works on traced ``d`` (an interior-point loop changes only ``d``)."""
+        d = jnp.asarray(d, dtype=self.d.dtype)
+        if d.shape != self.d.shape:
+            raise DimensionMismatchError(self.d.shape[0], d.shape[0],
+                                         "arc costs")
+        return dataclasses.replace(self, d=d)
 
     @property
     def num_arcs(self):
@@ -209,14 +227,15 @@ class KKTOperator(LinearOperator):
         return 5 * self.d.shape[0]
 
     def matvec(self, x):
-        return kkt_matvec(self.d, self.arc_u, self.arc_v, self.num_nodes, x,
+        return kkt_matvec(self.d, self.arc_u, self.arc_v, x,
                           tails=self.tails, heads=self.heads)
 
 
 def make_kkt_operator(quad_costs, arc_u, arc_v, num_nodes,
                       dtype=None) -> "KKTOperator":
     """KKT operator from host arrays: costs cast to ``dtype``, endpoints to
-    int32, and the node block's fixed summation plans built once here."""
+    int32, and the node block's fixed summation plans built once here
+    (O(m log m) on the host; reuse them with ``op.with_costs(d)``)."""
     return KKTOperator(
         d=jnp.asarray(quad_costs, dtype=dtype),
         arc_u=jnp.asarray(arc_u, dtype=jnp.int32),

@@ -53,10 +53,6 @@ __all__ = [
 _MIN_WIDTH, _MAX_WIDTH = 4, 256
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 def _chunk_width(run_lengths: np.ndarray) -> int:
     """The chunk width for a level: the median run length rounded up to a
     power of two, within ``[4, 256]``. Half the runs then fit one chunk, and
@@ -225,43 +221,51 @@ def row_sums(plan: RowSums, chunks: jax.Array) -> jax.Array:
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class SortedCOO:
-    """Row-sorted COO sparse matrix with a deterministic row-sum plan.
+    """Sparse matrix laid out for a deterministic row-sum matvec.
 
-    ``rows``/``cols``/``vals`` hold the ``nnz`` entries sorted by row (padded
-    to a static length with zero values in the last row). ``ell_cols`` and
-    ``ell_vals`` are the same entries laid out as the level-0 chunks of
-    ``plan`` (padding has column 0 and value 0), which is what
-    :func:`coo_spmv` reads.
+    ``ell_cols`` and ``ell_vals`` hold the entries, sorted by row, as the
+    level-0 chunks of ``plan`` (padding has column 0 and value 0); they and
+    the plan are the only device arrays, and all that :func:`coo_spmv`
+    reads. ``triplets`` keeps the row-sorted ``(rows, cols, vals)`` on the
+    host for host-side consumers (:meth:`todense`, the row partition of
+    ``parallel/sharded.py``). It is not a pytree leaf, so a copy that went
+    through a JAX transformation has none.
     """
 
-    rows: jax.Array  # int32 (nnz_padded,)
-    cols: jax.Array  # int32 (nnz_padded,)
-    vals: jax.Array  # dtype (nnz_padded,)
     ell_cols: jax.Array  # int32 (C0, W0)
     ell_vals: jax.Array  # dtype (C0, W0)
     plan: RowSums
     shape: Tuple[int, int]
-    nnz: int  # true number of nonzeros (excludes padding)
+    nnz: int  # true number of nonzeros
+    triplets: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = \
+        dataclasses.field(default=None, compare=False, repr=False)
 
     def tree_flatten(self):
-        children = (self.rows, self.cols, self.vals, self.ell_cols,
-                    self.ell_vals, self.plan)
-        return children, (self.shape, self.nnz)
+        return (self.ell_cols, self.ell_vals, self.plan), (self.shape, self.nnz)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        rows, cols, vals, ell_cols, ell_vals, plan = children
+        ell_cols, ell_vals, plan = children
         shape, nnz = aux
-        return cls(rows=rows, cols=cols, vals=vals, ell_cols=ell_cols,
-                   ell_vals=ell_vals, plan=plan, shape=shape, nnz=nnz)
+        return cls(ell_cols=ell_cols, ell_vals=ell_vals, plan=plan,
+                   shape=shape, nnz=nnz)
 
     @property
     def dtype(self):
-        return self.vals.dtype
+        return self.ell_vals.dtype
+
+    def host_triplets(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        if self.triplets is None:
+            raise ValueError(
+                "this SortedCOO carries no host triplets: use the matrix "
+                "returned by csr_from_triplets, outside jit")
+        return self.triplets
 
     def todense(self) -> jax.Array:
-        out = jnp.zeros(self.shape, dtype=self.vals.dtype)
-        return out.at[self.rows, self.cols].add(self.vals)
+        rows, cols, vals = self.host_triplets()
+        out = np.zeros(self.shape, dtype=vals.dtype)
+        np.add.at(out, (rows, cols), vals)
+        return jnp.asarray(out)
 
 
 def csr_from_triplets(
@@ -271,7 +275,6 @@ def csr_from_triplets(
     cols,
     vals,
     dtype=None,
-    pad_to: int = 512,
     sum_duplicates: bool = True,
 ) -> SortedCOO:
     """Build a :class:`SortedCOO` from triplets (host-side, NumPy).
@@ -308,26 +311,17 @@ def csr_from_triplets(
         rows, cols, vals = rows[order], cols[order], vals[order]
 
     nnz = int(rows.size)
-    vdt = vals.dtype if vals.size else np.dtype(dtype or np.float64)
-    padded = max(_round_up(max(nnz, 1), pad_to), pad_to)
-    pr = np.full(padded, n_rows - 1, dtype=np.int32)
-    pc = np.zeros(padded, dtype=np.int32)
-    pv = np.zeros(padded, dtype=vdt)
-    pr[:nnz] = rows
-    pc[:nnz] = cols
-    pv[:nnz] = vals
-
+    vals = vals.astype(vals.dtype if vals.size else np.dtype(dtype or np.float64))
+    rows, cols = rows.astype(np.int32), cols.astype(np.int32)
     plan, pos = build_row_sums(np.bincount(rows, minlength=n_rows))
-    ell_cols, ell_vals = gather_entries(pos, nnz, pc, pv)
+    ell_cols, ell_vals = gather_entries(pos, nnz, cols, vals)
     return SortedCOO(
-        rows=jnp.asarray(pr),
-        cols=jnp.asarray(pc),
-        vals=jnp.asarray(pv),
         ell_cols=jnp.asarray(ell_cols),
         ell_vals=jnp.asarray(ell_vals),
         plan=plan,
         shape=(int(n_rows), int(n_cols)),
         nnz=nnz,
+        triplets=(rows, cols, vals),
     )
 
 
@@ -359,10 +353,9 @@ def kkt_matvec(
     d: jax.Array,
     arc_u: jax.Array,
     arc_v: jax.Array,
-    num_nodes: int,
     x: jax.Array,
-    tails: Optional[Tuple[RowSums, jax.Array]] = None,
-    heads: Optional[Tuple[RowSums, jax.Array]] = None,
+    tails: Tuple[RowSums, jax.Array],
+    heads: Tuple[RowSums, jax.Array],
 ) -> jax.Array:
     """Structure-aware matvec for the KKT matrix ``A = [[D, Eᵀ], [E, 0]]``.
 
@@ -378,10 +371,8 @@ def kkt_matvec(
     (reference ``src/utils/data_loader.rs:120-133``).
 
     The node block is summed by the fixed plans ``tails`` and ``heads``
-    (from :func:`incidence_sums`) when they are given, so the product is
-    bitwise reproducible. Without them — an operator assembled from traced
-    arrays inside ``jit`` — it falls back to a scatter-add, which is
-    deterministic on the CPU but not on the GPU.
+    (from :func:`incidence_sums` over ``arc_u`` and ``arc_v``), so the
+    product is bitwise reproducible on every backend.
     """
     m = d.shape[0]
     x_a = x[:m]
@@ -391,16 +382,11 @@ def kkt_matvec(
         + x_n.at[arc_u].get(mode="promise_in_bounds")
         - x_n.at[arc_v].get(mode="promise_in_bounds")
     )
-    if tails is not None and heads is not None:
-        (t_plan, t_arcs), (h_plan, h_arcs) = tails, heads
-        y_n = (row_sums(t_plan, x_a.at[t_arcs].get(mode="fill", fill_value=0))
-               - row_sums(h_plan, x_a.at[h_arcs].get(mode="fill", fill_value=0)))
-        # Keeps XLA from fusing the node sums into the concatenation below:
-        # fused, that kernel took ~100 us a step on an H100 at 500k arcs,
-        # three times the rest of the step.
-        y_n = jax.lax.optimization_barrier(y_n)
-    else:
-        y_n = jnp.zeros((num_nodes,), dtype=x.dtype)
-        y_n = y_n.at[arc_u].add(x_a, mode="promise_in_bounds")
-        y_n = y_n.at[arc_v].add(-x_a, mode="promise_in_bounds")
+    (t_plan, t_arcs), (h_plan, h_arcs) = tails, heads
+    y_n = (row_sums(t_plan, x_a.at[t_arcs].get(mode="fill", fill_value=0))
+           - row_sums(h_plan, x_a.at[h_arcs].get(mode="fill", fill_value=0)))
+    # Keeps XLA from fusing the node sums into the concatenation below:
+    # fused, that kernel took ~100 us a step on an H100 at 500k arcs,
+    # three times the rest of the step.
+    y_n = jax.lax.optimization_barrier(y_n)
     return jnp.concatenate([y_a, y_n])

@@ -129,9 +129,7 @@ class ShardedSparseOperator:
     # ------------------------------------------------------------------
     @classmethod
     def from_coo(cls, coo: SortedCOO, mesh: Mesh, axis: str = "rows"):
-        rows = np.asarray(coo.rows)[: coo.nnz]
-        cols = np.asarray(coo.cols)[: coo.nnz]
-        vals = np.asarray(coo.vals)[: coo.nnz]
+        rows, cols, vals = coo.host_triplets()
         return cls(coo.shape[0], rows, cols, vals, mesh, axis)
 
     @classmethod
